@@ -8,11 +8,11 @@ import numpy as np
 import pytest
 from PIL import Image as PILImage
 
-from flatmatch_tpu.config import AoConfig
-from flatmatch_tpu.engines import ao
-from flatmatch_tpu.io import tiles as tiles_io
-from flatmatch_tpu.ops.device_scene import pack_rects
-from flatmatch_tpu.scene import geometry, image as im, layout
+from flatmatch.config import AoConfig
+from flatmatch.engines import ao
+from flatmatch.io import tiles as tiles_io
+from flatmatch.ops.device_scene import pack_rects
+from flatmatch.scene import geometry, image as im, layout
 from tests.conftest import FIXTURES
 
 f32 = np.float32
@@ -68,24 +68,23 @@ def test_ao_texels_match_reference(name):
     assert (ours[~level0] == 0).all()
 
 
-@pytest.mark.slow
 def test_ao_example_walls_match_reference():
     """Flagship-scale AO golden: a deterministic wall subset of example.png
     (one per size class: 16..2048 tiles, incl. the downward door soffit
-    whose grazing rays exposed the bf16-matmul intersector bug on hardware,
-    round 4) vs the reference-build dump
+    whose grazing rays exposed a reduced-precision-matmul intersector bug
+    on hardware) vs the reference-build dump
     (tests/fixtures/example_ao_texels.f32). AO is per-texel independent, so
     the subset equals the same slice of a full run; the FULL example scene
-    is gated on chip by tools/ao_hardware_gate.py."""
-    img = im.load_layout("/root/reference/example.png")
-    lay = layout.parse_layout(img, f32(1.0) / f32(30.0), 200.0)
-    scene = geometry.Scene(lay)
+    is gated on the card by chip_smoke.py (phase 4)."""
+    from flatmatch.scene.rect_dump import load_rect_dump
+
+    scene = load_rect_dump(FIXTURES / "example_rects.txt")
     gold = _golden("example", scene.num_texels)
     sel = [147, 164, 38, 88, 154]
     ours = ao.render_ao(scene, pack_rects(scene.walls), AO_CFG, sel)
     for wi in sel:
         r = scene.walls[wi]
-        from flatmatch_tpu.scene.rectangle import num_tiles
+        from flatmatch.scene.rectangle import num_tiles
 
         sl = slice(r.base, r.base + num_tiles(r))
         rel = np.abs(ours[sl] - gold[sl]) / np.maximum(np.abs(gold[sl]), 1e-6)
@@ -96,13 +95,13 @@ def test_ao_example_walls_match_reference():
 
 
 def test_intersect_has_no_matmul():
-    """The intersector must not lower any contraction to dot_general: on
-    TPU an f32 matmul defaults to ONE bf16 MXU pass, which truncates ray
-    origins to 8 mantissa bits and fabricates hits at grazing incidence
-    (found on hardware against the example.png AO golden, round 4). The
-    K=3 dots are spelled as explicit VPU broadcasts (ops/intersect._dot3);
-    this guard fails if anyone reintroduces `@`."""
-    from flatmatch_tpu.ops.intersect import intersect_all
+    """The intersector must not lower any contraction to dot_general: an
+    f32 matmul may run at reduced precision on an accelerator (TF32 on the
+    GPU's tensor cores), which truncates ray origins and fabricates hits at
+    grazing incidence (found on hardware against the example.png AO
+    golden). The K=3 dots are spelled as explicit elementwise broadcasts
+    (ops/intersect._dot3); this guard fails if anyone reintroduces `@`."""
+    from flatmatch.ops.intersect import intersect_all
 
     import jax
 
@@ -127,68 +126,3 @@ def test_ao_tile_png_matches_reference(idx):
     diff = np.abs(ours.astype(int) - gold.astype(int))
     assert diff.max() <= 1, f"max channel diff {diff.max()}"
     assert (diff > 0).mean() < 0.02
-
-
-def test_ao_pallas_matches_xla_engine():
-    """AA Pallas AO vs the XLA AO engine on tiny (interpret mode)."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    from flatmatch_tpu.engines import ao_pallas
-    from flatmatch_tpu.ops.aa_scene import pack_aa
-
-    scene, xla_tex = _scene("tiny")
-    aa = pack_aa(scene.walls)
-    assert aa is not None
-    with pltpu.force_tpu_interpret_mode():
-        pal_tex = ao_pallas.render_ao(scene, aa, AO_CFG)
-    level0 = scene.level0_mask()
-    a, b = pal_tex[level0], xla_tex[level0]
-    rel = np.abs(a - b) / np.maximum(np.abs(b), 1e-6)
-    # same formulas; only float op order / grazing-tie differences
-    assert (rel < 2e-2).all(), rel.max()
-    assert (rel < 5e-4).mean() > 0.98
-    assert (pal_tex[~level0] == 0).all()
-
-
-@pytest.mark.slow
-def test_ao_pallas_unroll_invariant():
-    """The unrolled rect loop (round 4) is BIT-identical across unroll
-    factors, including a static-tail remainder (unroll=3 against tiny's
-    group counts): in-order tests, order-insensitive running minimum."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    from flatmatch_tpu.engines import ao_pallas
-    from flatmatch_tpu.ops.aa_scene import pack_aa
-
-    scene, _ = _scene("tiny")
-    aa = pack_aa(scene.walls)
-    with pltpu.force_tpu_interpret_mode():
-        base = np.asarray(ao_pallas.render_ao(scene, aa, AO_CFG, unroll=1))
-        for u in (3, 4):
-            other = np.asarray(
-                ao_pallas.render_ao(scene, aa, AO_CFG, unroll=u)
-            )
-            assert (other == base).all(), f"unroll={u} diverged"
-
-
-@pytest.mark.slow
-def test_ao_fused_matches_chunked():
-    """render_ao_fused (in-kernel ray synthesis, round 4) vs the chunked
-    expansion path: same per-(ray, rect) arithmetic, sum-over-k order
-    differs -> agreement to float ulps, zero pattern identical."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    from flatmatch_tpu.engines import ao_pallas
-    from flatmatch_tpu.ops.aa_scene import pack_aa
-
-    scene, _ = _scene("tiny")
-    aa = pack_aa(scene.walls)
-    with pltpu.force_tpu_interpret_mode():
-        a = np.asarray(ao_pallas.render_ao(scene, aa, AO_CFG))
-        b = np.asarray(
-            ao_pallas.render_ao_fused(scene, aa, AO_CFG, sublanes=32)
-        )
-    assert ((a == 0) == (b == 0)).all()
-    nz = a != 0
-    rel = np.abs(b[nz] - a[nz]) / np.abs(a[nz])
-    assert rel.max() < 1e-5, rel.max()

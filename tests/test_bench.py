@@ -3,7 +3,7 @@
 The driver runs `python bench.py` on real hardware and records its single
 JSON line; if bench.py breaks, the round loses its benchmark record. This
 runs it in-subprocess on CPU at a tiny budget (the XLA engine path; the
-Pallas path is TPU-only and exercised by the driver itself) and asserts
+GPU kernel path runs on the card) and asserts
 the output contract: exactly one parseable JSON line with the documented
 keys and a positive rate.
 """

@@ -8,9 +8,9 @@ import numpy as np
 import pytest
 from PIL import Image as PILImage
 
-from flatmatch_tpu import cli
-from flatmatch_tpu.config import DEFAULT_CONFIG, Engine
-from flatmatch_tpu.io.rest import package_offer
+from flatmatch import cli
+from flatmatch.config import DEFAULT_CONFIG, Engine
+from flatmatch.io.rest import package_offer
 from tests.conftest import FIXTURES
 
 
@@ -46,25 +46,23 @@ def test_cli_flag_plumbing():
         samples_per_area = 123.0
         seed = 7
         photons_per_batch = 256
-        splat = "bucket_exact"
         device_rng = True
         checkpoint_every = 16
         radiosity_rays = 55
         radiosity_iterations = 3
         ao_chunk = 64
-        ao_fused = True
 
     cfg = args(A)
     assert cfg.engine is Engine.RADIOSITY
     assert cfg.photon.samples_per_area == 123.0
-    assert cfg.photon.splat == "bucket_exact"
     assert cfg.photon.checkpoint_every == 16
     assert cfg.radiosity.rays_per_texel == 55
     assert cfg.radiosity.iterations == 3
     assert cfg.radiosity.seed == 7
     assert cfg.ao.texels_per_chunk == 64
-    assert cfg.ao.fused is True
     assert cfg.photon.device_rng is True
+    A.engine = "auto"
+    assert args(A).engine is None  # the platform's default photon engine
 
 
 def test_package_offer(tmp_path):
@@ -209,7 +207,7 @@ def test_rest_server_round_trip(tmp_path):
     import urllib.error
     import urllib.request
 
-    from flatmatch_tpu.io.rest import make_rest_server
+    from flatmatch.io.rest import make_rest_server
 
     rest = tmp_path / "rest" / "get"
     for kind in ("offer", "layout", "textures"):
@@ -317,7 +315,7 @@ def test_walk_collision_movement_contract():
     from it must be blocked before leaving the raster (the apartment is
     enclosed), and the blocking cell must trace back to a real WALL pixel
     within the dilation radius (parseLayout.c:571-594)."""
-    from flatmatch_tpu.scene import collision, image as im, layout
+    from flatmatch.scene import collision, image as im, layout
 
     img = im.load_layout(str(FIXTURES / "tiny.png"))
     rle = json.loads(collision.build_collision_map(img))
@@ -375,33 +373,26 @@ def test_walk_collision_movement_contract():
 
 
 @pytest.mark.fast
-def test_ao_fused_default_and_optout(tmp_path, monkeypatch):
-    """--ao-fused is the production default since round 5 (1.42B vs 860M
-    texel-rays/s steady state on v5e); --ao-chunked opts out. Gated at
-    the real argparse surface (the flag-plumbing test exercises
-    _build_cfg with an explicit namespace, which cannot see argparse
-    defaults)."""
+def test_cli_engine_default_and_device_rng(tmp_path, monkeypatch):
+    """At the real argparse surface: --engine defaults to auto (the
+    platform's photon engine, chosen in backend.choose_engine) and the
+    in-kernel RNG is on unless --no-device-rng."""
     import sys
 
-    import flatmatch_tpu.render  # noqa: F401
+    import flatmatch.render  # noqa: F401
 
-    render_mod = sys.modules["flatmatch_tpu.render"]
+    render_mod = sys.modules["flatmatch.render"]
     seen = []
 
     def fake_render(layout, out, scale, cfg, **kw):
         seen.append(cfg)
 
-        class R:
-            tile_paths = []
-
-        return R()
-
     monkeypatch.setattr(render_mod, "render", fake_render)
     base = ["render", str(FIXTURES / "tiny.png"), "30",
             "--out", str(tmp_path)]
     assert cli.main(base) == 0
-    assert seen[-1].ao.fused is True            # the default
-    assert cli.main(base + ["--ao-chunked"]) == 0
-    assert seen[-1].ao.fused is False           # the opt-out
-    assert cli.main(base + ["--ao-fused"]) == 0
-    assert seen[-1].ao.fused is True
+    assert seen[-1].engine is None
+    assert seen[-1].photon.device_rng is True
+    assert cli.main(base + ["--no-device-rng", "--engine", "photon_xla"]) == 0
+    assert seen[-1].engine is Engine.PHOTON_XLA
+    assert seen[-1].photon.device_rng is False

@@ -2,9 +2,9 @@
 import numpy as np
 import pytest
 
-from flatmatch_tpu.debug.raytrace import Camera, render_first_hit, rect_index_colors
-from flatmatch_tpu.ops.device_scene import pack_rects
-from flatmatch_tpu.scene import geometry, image as im, layout
+from flatmatch.debug.raytrace import Camera, render_first_hit, rect_index_colors
+from flatmatch.ops.device_scene import pack_rects
+from flatmatch.scene import geometry, image as im, layout
 from tests.conftest import FIXTURES
 
 f32 = np.float32
@@ -55,7 +55,7 @@ def test_cli_debug_command(tmp_path):
     (the debugRaytracer.cc harness as a user-reachable command)."""
     from PIL import Image
 
-    from flatmatch_tpu.cli import main
+    from flatmatch.cli import main
 
     out = tmp_path / "dbg.png"
     rc = main([

@@ -6,11 +6,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from flatmatch_tpu.config import PhotonConfig
-from flatmatch_tpu.diff.render import make_autodiff_oracle, make_diff_renderer
-from flatmatch_tpu.engines import photon
-from flatmatch_tpu.ops.device_scene import pack_emitters, pack_rects
-from flatmatch_tpu.scene import geometry, image as im, layout
+from flatmatch.config import PhotonConfig
+from flatmatch.diff.render import make_autodiff_oracle, make_diff_renderer
+from flatmatch.engines import schedule
+from flatmatch.ops.device_scene import pack_emitters, pack_rects
+from flatmatch.scene import geometry, image as im, layout
 from tests.conftest import FIXTURES
 
 f32 = np.float32
@@ -44,7 +44,7 @@ def test_forward_matches_plain_engine(setup):
     scene, rects, emitters, albedo0, power0, w, render, oracle = setup
     lm_diff = np.asarray(render(albedo0, power0))
     lm_plain = np.asarray(
-        photon.render_photons(rects, emitters, scene.num_texels, CFG)
+        schedule.render_photons(rects, emitters, scene.num_texels, CFG)
     )
     np.testing.assert_array_equal(lm_diff, lm_plain)
 
@@ -65,387 +65,6 @@ def test_replay_vjp_matches_autodiff(setup):
     # something actually flows
     assert np.abs(np.asarray(ga)).sum() > 0
     assert np.abs(np.asarray(gp)).sum() > 0
-
-
-def test_wide_diff_forward_matches_wide_engine(setup):
-    """The diff-mode wide kernel at uniform albedo=cfg.albedo and power=1
-    must reproduce the production wide kernel bit-for-bit (the extra
-    albedo/slot tracking must not disturb the trace) — interpret mode."""
-    import dataclasses
-
-    from jax.experimental.pallas import tpu as pltpu
-
-    from flatmatch_tpu.diff.render import make_diff_renderer_wide
-    from flatmatch_tpu.engines import photon_pallas_wide
-    from flatmatch_tpu.ops.aa_scene import pack_aa
-
-    scene, rects, emitters, albedo0, power0, w, render, oracle = setup
-    aa = pack_aa(scene.walls)
-    assert aa is not None and aa.perm is not None
-    cfg = dataclasses.replace(CFG, splat="scatter")
-    with pltpu.force_tpu_interpret_mode():
-        render_w = make_diff_renderer_wide(
-            rects, emitters, scene.num_texels, cfg, aa, sublanes=1
-        )
-        lm_diff = np.asarray(render_w(albedo0, power0))
-        lm_plain = np.asarray(
-            photon_pallas_wide.render_photons(
-                rects, emitters, scene.num_texels, cfg, aa, sublanes=1
-            )
-        )
-    np.testing.assert_array_equal(lm_diff, lm_plain)
-
-
-def test_wide_diff_i8_dynamic_scale_no_clipping(setup):
-    """Round-4 i8 diff tier: with cfg.splat='inkernel_i8' the forward runs
-    the int8 splat on a DYNAMIC quantization grid — the production grid
-    times max(1,|power|)*max(1,max albedo)^D — so a power > 1 must NOT
-    clip the 7-bit bins (a fixed grid would silently lose ~12% of the
-    bright first-bounce deposits at power=2). Gate: total energy matches
-    the exact-f32 scatter tier; per-texel error stays at the (power-
-    inflated) dither-quantization level."""
-    import dataclasses
-
-    from jax.experimental.pallas import tpu as pltpu
-
-    from flatmatch_tpu.diff.render import make_diff_renderer_wide
-    from flatmatch_tpu.engines.photon_pallas_wide import splat_color_scale
-    from flatmatch_tpu.ops.aa_scene import pack_aa
-
-    scene, rects, emitters, albedo0, power0, w, render, oracle = setup
-    aa = pack_aa(scene.walls)
-    power2 = power0 * 2.0
-    with pltpu.force_tpu_interpret_mode():
-        ref = np.asarray(
-            make_diff_renderer_wide(
-                rects, emitters, scene.num_texels,
-                dataclasses.replace(CFG, splat="scatter"), aa, sublanes=1,
-            )(albedo0, power2)
-        )
-        got = np.asarray(
-            make_diff_renderer_wide(
-                rects, emitters, scene.num_texels,
-                dataclasses.replace(CFG, splat="inkernel_i8"), aa,
-                sublanes=1,
-            )(albedo0, power2)
-        )
-    # unbiased dither: total energy at the exact tier's level
-    np.testing.assert_allclose(got.sum(), ref.sum(), rtol=3e-3)
-    # per-texel: each deposit rounds within one dynamic grid step
-    # (scale * corr, corr = 2 at power=2); a texel with k deposits errs
-    # at most k steps and k is small at this budget
-    step = splat_color_scale(CFG) * 2.0
-    np.testing.assert_allclose(got, ref, rtol=6e-3, atol=4.0 * step)
-
-
-def test_wide_diff_gradients_match_oracle(setup):
-    """VERDICT r1 #3: gradients on the production wide kernel match the
-    autodiff oracle (same draws, XLA engine) at rtol 1e-3."""
-    import dataclasses
-
-    from jax.experimental.pallas import tpu as pltpu
-
-    from flatmatch_tpu.diff.render import make_diff_renderer_wide
-    from flatmatch_tpu.ops.aa_scene import pack_aa
-
-    scene, rects, emitters, albedo0, power0, w, render, oracle = setup
-    aa = pack_aa(scene.walls)
-    cfg = dataclasses.replace(CFG, splat="scatter")
-    # perturbed parameters so albedo gradients aren't at a symmetric point
-    albedo = albedo0 * (
-        0.8 + 0.3 * jax.random.uniform(
-            jax.random.PRNGKey(7), albedo0.shape
-        )
-    )
-    power = power0 * 1.3
-    with pltpu.force_tpu_interpret_mode():
-        render_w = make_diff_renderer_wide(
-            rects, emitters, scene.num_texels, cfg, aa, sublanes=1
-        )
-        ga, gp = jax.grad(
-            lambda a, p: jnp.sum(render_w(a, p) * w), argnums=(0, 1)
-        )(albedo, power)
-    oa, op = jax.grad(
-        lambda a, p: jnp.sum(oracle(a, p) * w), argnums=(0, 1)
-    )(albedo, power)
-    np.testing.assert_allclose(
-        np.asarray(ga), np.asarray(oa), rtol=1e-3, atol=1e-2
-    )
-    np.testing.assert_allclose(np.asarray(gp), np.asarray(op), rtol=1e-3)
-    assert np.abs(np.asarray(ga)).sum() > 0
-
-
-def test_wide_diff_fused_tier_matches_scatter_tier(setup):
-    """Round-4 fast tier: the in-kernel-splat diff forward and the
-    IN-KERNEL cotangent fold backward (trace_splat_wide_diff /
-    trace_fold_wide) vs the exact-f32 deposit-stream tier on the same
-    draws. Forward differs only by the bf16 color quantization of the
-    fused splat; gradients only by the single bf16 rounding of g in the
-    MXU gather (exact per element — one nonzero per one-hot output — so
-    the error averages out across deposits)."""
-    import dataclasses
-
-    from jax.experimental.pallas import tpu as pltpu
-
-    from flatmatch_tpu.diff.render import make_diff_renderer_wide
-    from flatmatch_tpu.ops.aa_scene import pack_aa
-
-    scene, rects, emitters, albedo0, power0, w, render, oracle = setup
-    aa = pack_aa(scene.walls)
-    albedo = albedo0 * (
-        0.8 + 0.3 * jax.random.uniform(jax.random.PRNGKey(7), albedo0.shape)
-    )
-    power = power0 * 1.3
-    with pltpu.force_tpu_interpret_mode():
-        r_sc = make_diff_renderer_wide(
-            rects, emitters, scene.num_texels,
-            dataclasses.replace(CFG, splat="scatter"), aa, sublanes=1,
-        )
-        r_fu = make_diff_renderer_wide(
-            rects, emitters, scene.num_texels,
-            dataclasses.replace(CFG, splat="inkernel"), aa, sublanes=1,
-        )
-        lm_sc = np.asarray(r_sc(albedo, power))
-        lm_fu = np.asarray(r_fu(albedo, power))
-        ga_sc, gp_sc = jax.grad(
-            lambda a, p: jnp.sum(r_sc(a, p) * w), argnums=(0, 1)
-        )(albedo, power)
-        ga_fu, gp_fu = jax.grad(
-            lambda a, p: jnp.sum(r_fu(a, p) * w), argnums=(0, 1)
-        )(albedo, power)
-    assert np.abs(lm_fu - lm_sc).max() <= 4e-3 * lm_sc.max()
-    ga_sc, ga_fu = np.asarray(ga_sc), np.asarray(ga_fu)
-    assert (
-        np.abs(ga_fu - ga_sc).max() <= 5e-4 * np.abs(ga_sc).max()
-    ), np.abs(ga_fu - ga_sc).max() / np.abs(ga_sc).max()
-    np.testing.assert_allclose(
-        np.asarray(gp_fu), np.asarray(gp_sc), rtol=5e-4
-    )
-
-
-def test_wide_diff_rng_forward_matches_production_bitexact(setup):
-    """The device-RNG diff forward (trace_splat_wide_diff_rng) at uniform
-    albedo must reproduce the production device-RNG engine
-    (trace_splat_wide_rng) BIT-exactly: same counters, same one-hot splat,
-    same accumulation order — the per-rect albedo row is the only
-    difference and it holds the same value."""
-    import dataclasses
-
-    from jax.experimental.pallas import tpu as pltpu
-
-    from flatmatch_tpu.engines.photon_pallas import emitter_vector
-    from flatmatch_tpu.engines.photon_pallas_wide import (
-        compact_aa, trace_splat_wide_diff_rng, trace_splat_wide_rng,
-    )
-    from flatmatch_tpu.engines.schedule import emitter_slice
-    from flatmatch_tpu.ops.aa_scene import pack_aa
-
-    scene, rects, emitters, albedo0, power0, w, render, oracle = setup
-    aa = pack_aa(scene.walls)
-    cfg = dataclasses.replace(CFG, splat="inkernel", device_rng=True)
-    aa_c, total_c, _ = compact_aa(aa, scene.num_texels)
-    ev = emitter_vector(emitter_slice(emitters, 0))
-    albedo_aa = albedo0[jnp.asarray(np.asarray(aa.perm), jnp.int32)]
-    with pltpu.force_tpu_interpret_mode():
-        prod = np.asarray(
-            trace_splat_wide_rng(
-                aa_c.fields, ev, 1234, 512, cfg, aa_c.group_counts,
-                total_c, 512, 1, unroll=4,
-            )
-        )
-        diff = np.asarray(
-            trace_splat_wide_diff_rng(
-                aa_c.fields, albedo_aa, ev, 1234, 512, cfg,
-                aa_c.group_counts, total_c, 512, 1, unroll=4,
-            )
-        )
-    assert prod.sum() > 0
-    np.testing.assert_array_equal(prod, diff)
-
-
-def test_wide_diff_i8_rng_forward_matches_production_bitexact(setup):
-    """The i8 diff forward's DYNAMIC quantization grid reduces to the
-    production constants bit-exactly at power<=1, albedo<=1 (corr is
-    exactly 1.0 and scale/inv_scale are the host-computed production
-    values) — so the device-RNG i8 diff forward must reproduce the
-    production inkernel_i8 engine BIT-exactly at default parameters:
-    same counters, same dither keys, same int32 bins, same de-scale."""
-    import dataclasses
-
-    from jax.experimental.pallas import tpu as pltpu
-
-    from flatmatch_tpu.engines.photon_pallas import emitter_vector
-    from flatmatch_tpu.engines.photon_pallas_wide import (
-        compact_aa, splat_color_scale, trace_splat_wide_diff_rng,
-        trace_splat_wide_rng,
-    )
-    from flatmatch_tpu.engines.schedule import emitter_slice
-    from flatmatch_tpu.ops.aa_scene import pack_aa
-
-    scene, rects, emitters, albedo0, power0, w, render, oracle = setup
-    aa = pack_aa(scene.walls)
-    cfg = dataclasses.replace(CFG, splat="inkernel_i8", device_rng=True)
-    aa_c, total_c, _ = compact_aa(aa, scene.num_texels)
-    ev = emitter_vector(emitter_slice(emitters, 0))
-    albedo_aa = albedo0[jnp.asarray(np.asarray(aa.perm), jnp.int32)]
-    # the diff renderer's scale_pair at power=1, albedo=0.9: corr == 1.0
-    corr = jnp.maximum(jnp.float32(1.0), jnp.abs(power0[0])) * (
-        jnp.maximum(jnp.float32(1.0), jnp.max(albedo0)) ** CFG.max_depth
-    )
-    scale = np.float32(splat_color_scale(cfg)) * corr
-    inv_scale = np.float32(1.0 / splat_color_scale(cfg)) / corr
-    with pltpu.force_tpu_interpret_mode():
-        prod = np.asarray(
-            trace_splat_wide_rng(
-                aa_c.fields, ev, 1234, 512, cfg, aa_c.group_counts,
-                total_c, 512, 1, unroll=4, i8=True,
-            )
-        )
-        diff = np.asarray(
-            trace_splat_wide_diff_rng(
-                aa_c.fields, albedo_aa, ev, 1234, 512, cfg,
-                aa_c.group_counts, total_c, 512, 1, unroll=4,
-                i8=True, scale=scale, inv_scale=inv_scale,
-            )
-        )
-    assert prod.sum() > 0
-    np.testing.assert_array_equal(prod, diff)
-
-
-def test_wide_diff_tail_shrink_bit_identical(setup):
-    """The diff tier's shrunk-grid tail batches (device RNG): forward
-    lightmap AND gradients must be bit-identical with tail_shrink on/off —
-    masked photons deposit exact +0.0 and fold exact 0 cotangent, so
-    dropping their blocks changes nothing (the production analog is
-    test_pallas_wide.test_tail_shrink_bit_identical)."""
-    import dataclasses
-
-    from jax.experimental.pallas import tpu as pltpu
-
-    from flatmatch_tpu.diff.render import make_diff_renderer_wide
-    from flatmatch_tpu.ops.aa_scene import pack_aa
-
-    scene, rects, emitters, albedo0, power0, w, render, oracle = setup
-    aa = pack_aa(scene.walls)
-    # batch 512 against the fixture's per-emitter counts gives partial
-    # tails (any count not a multiple of 512 shrinks)
-    cfg = dataclasses.replace(
-        CFG, splat="inkernel", device_rng=True, photons_per_batch=512
-    )
-    with pltpu.force_tpu_interpret_mode():
-        rs = make_diff_renderer_wide(
-            rects, emitters, scene.num_texels, cfg, aa, sublanes=1,
-            tail_shrink=True,
-        )
-        rf = make_diff_renderer_wide(
-            rects, emitters, scene.num_texels, cfg, aa, sublanes=1,
-            tail_shrink=False,
-        )
-        lm_s = np.asarray(rs(albedo0, power0))
-        lm_f = np.asarray(rf(albedo0, power0))
-        gs = jax.grad(
-            lambda a, p: jnp.sum(rs(a, p) * w), argnums=(0, 1)
-        )(albedo0, power0)
-        gf = jax.grad(
-            lambda a, p: jnp.sum(rf(a, p) * w), argnums=(0, 1)
-        )(albedo0, power0)
-    assert lm_s.sum() > 0
-    np.testing.assert_array_equal(lm_s, lm_f)
-    np.testing.assert_array_equal(np.asarray(gs[0]), np.asarray(gf[0]))
-    np.testing.assert_array_equal(np.asarray(gs[1]), np.asarray(gf[1]))
-
-
-def test_wide_diff_rng_gradients(setup):
-    """Production diff tier (device RNG + in-kernel splat/fold). Albedo:
-    central differences at the dominant entries (the lightmap is a fixed
-    polynomial of albedo at fixed counters). Power: the EXACT linearity
-    identity gp[0] * p == loss for a single-emitter scene — central
-    differences are useless for power here because deposit colors cluster
-    at a few discrete values, so the bf16 splat rounding is SYSTEMATIC
-    across thousands of identical deposits and /2h amplifies it ~7%
-    (measured); the identity is immune to it (both sides see the same
-    quantized forward)."""
-    import dataclasses
-
-    from jax.experimental.pallas import tpu as pltpu
-
-    from flatmatch_tpu.diff.render import make_diff_renderer_wide
-    from flatmatch_tpu.ops.aa_scene import pack_aa
-
-    scene, rects, emitters, albedo0, power0, w, render, oracle = setup
-    aa = pack_aa(scene.walls)
-    cfg = dataclasses.replace(CFG, splat="inkernel", device_rng=True)
-    with pltpu.force_tpu_interpret_mode():
-        r = make_diff_renderer_wide(
-            rects, emitters, scene.num_texels, cfg, aa, sublanes=1
-        )
-
-        def loss(a, p):
-            return jnp.sum(r(a, p) * w)
-
-        ga, gp = jax.grad(loss, argnums=(0, 1))(albedo0, power0)
-        ga, gp = np.asarray(ga), np.asarray(gp)
-        h = 1e-2
-        for i in np.argsort(-np.abs(ga))[:2]:
-            fd = (
-                float(loss(albedo0.at[i].add(h), power0))
-                - float(loss(albedo0.at[i].add(-h), power0))
-            ) / (2 * h)
-            np.testing.assert_allclose(ga[i], fd, rtol=5e-2)
-        if len(gp) == 1:
-            # dL/dp * p == L exactly (every deposit linear in p); the only
-            # slack is the fold's single bf16 rounding of g
-            val = float(loss(albedo0, power0))
-            np.testing.assert_allclose(gp[0], val, rtol=2e-3)
-
-
-def test_sharded_wide_diff_matches_sharded_xla_diff(setup):
-    """The sharded wide-kernel diff renderer keys draws per (batch, device)
-    exactly like the sharded XLA diff renderer: same photons, so values
-    and gradients agree to float tolerance (interpret mode, 8-dev mesh)."""
-    import dataclasses
-
-    from jax.experimental.pallas import tpu as pltpu
-
-    from flatmatch_tpu.diff.render import (
-        make_diff_renderer_sharded, make_diff_renderer_sharded_wide,
-    )
-    from flatmatch_tpu.ops.aa_scene import pack_aa
-    from flatmatch_tpu.parallel.mesh import photon_mesh
-
-    scene, rects, emitters, albedo0, power0, w, render, oracle = setup
-    aa = pack_aa(scene.walls)
-    cfg = dataclasses.replace(
-        CFG, splat="scatter", photons_per_batch=1024
-    )
-    mesh = photon_mesh()
-    albedo = albedo0 * 0.95
-    power = power0 * 1.2
-
-    xla = make_diff_renderer_sharded(
-        rects, emitters, scene.num_texels, cfg, mesh
-    )
-    gx_a, gx_p = jax.grad(
-        lambda a, p: jnp.sum(xla(a, p) * w), argnums=(0, 1)
-    )(albedo, power)
-    with pltpu.force_tpu_interpret_mode():
-        wide_r = make_diff_renderer_sharded_wide(
-            rects, emitters, scene.num_texels, cfg, aa, mesh, sublanes=1
-        )
-        lm_w = wide_r(albedo, power)
-        gw_a, gw_p = jax.grad(
-            lambda a, p: jnp.sum(wide_r(a, p) * w), argnums=(0, 1)
-        )(albedo, power)
-    lm_x = xla(albedo, power)
-    np.testing.assert_allclose(
-        np.asarray(lm_w), np.asarray(lm_x), rtol=2e-5, atol=2e-3
-    )
-    np.testing.assert_allclose(
-        np.asarray(gw_a), np.asarray(gx_a), rtol=1e-3, atol=1e-2
-    )
-    np.testing.assert_allclose(
-        np.asarray(gw_p), np.asarray(gx_p), rtol=1e-3
-    )
 
 
 def test_gradients_match_finite_differences(setup):
@@ -495,8 +114,8 @@ def test_sharded_diff_renderer(setup):
     DIRECTIONALLY (different RNG partition -> statistical agreement)."""
     import jax.numpy as jnp
 
-    from flatmatch_tpu.diff.render import make_diff_renderer_sharded
-    from flatmatch_tpu.parallel.mesh import photon_mesh
+    from flatmatch.diff.render import make_diff_renderer_sharded
+    from flatmatch.parallel.mesh import photon_mesh
 
     scene, rects, emitters, albedo0, power0, w, render, oracle = setup
     mesh = photon_mesh()
@@ -531,7 +150,7 @@ def test_fit_power_recovers_exactly(setup):
     """Inverse rendering, power-only: the target is rendered at known
     emitter powers with the same seed, so the true powers are an exact
     global optimum; the fit must recover them to ~1%."""
-    from flatmatch_tpu.diff.fit import fit_materials
+    from flatmatch.diff.fit import fit_materials
 
     scene, rects, emitters, albedo0, power0, w, render, oracle = setup
     n_em = len(np.asarray(emitters.counts))
@@ -553,7 +172,7 @@ def test_fit_power_recovers_exactly(setup):
 def test_fit_materials_joint(setup):
     """Joint albedo+power fit: loss collapses and the fitted parameters
     reproduce the target lightmap."""
-    from flatmatch_tpu.diff.fit import fit_materials
+    from flatmatch.diff.fit import fit_materials
 
     scene, rects, emitters, albedo0, power0, w, render, oracle = setup
     n_rects = len(np.asarray(albedo0))
@@ -583,9 +202,9 @@ def test_fit_layout_rejects_mismatched_target(tmp_path):
     compiled scene (wrong layout or scale) instead of mis-assembling."""
     import pytest
 
-    from flatmatch_tpu.config import DEFAULT_CONFIG, Engine
-    from flatmatch_tpu.diff.fit import fit_layout
-    from flatmatch_tpu.render import render
+    from flatmatch.config import DEFAULT_CONFIG, Engine
+    from flatmatch.diff.fit import fit_layout
+    from flatmatch.render import render
     from tests.conftest import FIXTURES
 
     cfg = DEFAULT_CONFIG.replace(
@@ -598,60 +217,3 @@ def test_fit_layout_rejects_mismatched_target(tmp_path):
         # scale 15 halves the texel grid -> dimension mismatch
         fit_layout(str(FIXTURES / "tiny.png"), str(tmp_path / "tiles"),
                    15.0, cfg, steps=1)
-
-
-def test_diff_renderer_degrades_fused_splat(monkeypatch):
-    """Past the fused-splat VMEM ceiling the wide diff renderer degrades
-    to its exact deposit-stream tier (threefry draws — see the
-    maybe_degrade_splat docstring's draw-source caveat): forced by
-    shrinking the limit; forward AND gradients equal an explicit
-    scatter-tier renderer's."""
-    import dataclasses
-    import io
-    from contextlib import redirect_stderr
-
-    from jax.experimental.pallas import tpu as pltpu
-
-    from flatmatch_tpu.diff.render import make_diff_renderer_wide
-    from flatmatch_tpu.engines import photon_pallas_wide as W
-    from flatmatch_tpu.ops.aa_scene import pack_aa
-    from flatmatch_tpu.ops.device_scene import pack_emitters, pack_rects
-    from flatmatch_tpu.scene import geometry, image as im, layout
-    from tests.conftest import FIXTURES
-
-    img = im.load_layout(str(FIXTURES / "tiny.png"))
-    lay = layout.parse_layout(img, f32(1.0) / f32(30.0), 200.0)
-    scene = geometry.Scene(lay)
-    cfg_fused = PhotonConfig(
-        samples_per_area=3000.0, photons_per_batch=512, seed=5,
-        splat="inkernel",
-    )
-    cfg_scatter = dataclasses.replace(cfg_fused, splat="scatter")
-    rects = pack_rects(scene.walls)
-    emitters = pack_emitters(
-        scene, cfg_fused.samples_per_area, cfg_fused.window_color,
-        cfg_fused.light_color,
-    )
-    aa = pack_aa(scene.walls)
-    albedo = jnp.full((len(scene.walls),), 0.8, jnp.float32)
-    power = jnp.full((emitters.pos.shape[0],), 1.1, jnp.float32)
-
-    def run(cfg):
-        render = make_diff_renderer_wide(
-            rects, emitters, scene.num_texels, cfg, aa, sublanes=1
-        )
-        v, (ga, gp) = jax.value_and_grad(
-            lambda a, p: render(a, p).sum(), argnums=(0, 1)
-        )(albedo, power)
-        return float(v), np.asarray(ga), np.asarray(gp)
-
-    monkeypatch.setattr(W, "FUSED_ACC_VMEM_LIMIT_BYTES", 1024)
-    err = io.StringIO()
-    with pltpu.force_tpu_interpret_mode(), redirect_stderr(err):
-        v_d, ga_d, gp_d = run(cfg_fused)
-        v_s, ga_s, gp_s = run(cfg_scatter)
-    assert "VMEM" in err.getvalue()
-    np.testing.assert_allclose(v_d, v_s, rtol=1e-6)
-    np.testing.assert_allclose(ga_d, ga_s, rtol=1e-6)
-    np.testing.assert_allclose(gp_d, gp_s, rtol=1e-6)
-    assert np.abs(ga_d).sum() > 0

@@ -1,11 +1,11 @@
 """Property-based fuzzing of the ENGINES (round-4 VERDICT #5).
 
 test_fuzz_scene.py checks that random layouts *compile* soundly; these
-tests check that the compiled scenes *trace identically* on the wide AA
-Pallas megakernel (interpret mode) and the XLA engine when both consume
-the same uniform draws — covering the AA grouping/packing edge cases
-(group order, rect-loop unroll tails, texel clamping at rect borders)
-that hand fixtures can't enumerate. Anchor: the reference's brute-force
+tests check that the compiled scenes *trace identically* on the photon
+trace kernel (engines/photon_triton.py, interpret mode) and the XLA engine
+when both consume the same uniform draws — covering the AA grouping and
+packing edge cases (group order, empty groups, texel clamping at rect
+borders) that hand fixtures can't enumerate. Anchor: the reference's brute-force
 kernel loop (/root/reference/photonmap.cl:194-206) — the path with no
 tree to hide behind, where every rect/axis edge case lands.
 
@@ -17,27 +17,28 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-from jax.experimental.pallas import tpu as pltpu
 from PIL import Image
 
-from flatmatch_tpu.config import PhotonConfig
-from flatmatch_tpu.engines import photon, photon_pallas, photon_pallas_wide
-from flatmatch_tpu.ops.aa_scene import pack_aa
-from flatmatch_tpu.ops.device_scene import pack_emitters, pack_rects
-from flatmatch_tpu.scene import geometry, image as im, layout
+from flatmatch.config import PhotonConfig
+from flatmatch.engines import photon, photon_triton
+from flatmatch.ops.aa_scene import pack_aa
+from flatmatch.ops.device_scene import pack_emitters, pack_rects
+from flatmatch.scene import geometry, image as im, layout
 from tests.test_fuzz_scene import (
     EMPTY, OUTSIDE, WALL, WINDOW, _random_layout,
 )
 
 f32 = np.float32
 
-pytestmark = pytest.mark.slow
-
-# scatter splat: draws-level parity, exactly like test_pallas_wide.CFG
-CFG = PhotonConfig(
-    samples_per_area=2000.0, photons_per_batch=512, seed=3, splat="scatter"
-)
+CFG = PhotonConfig(samples_per_area=2000.0, photons_per_batch=512, seed=3)
 B = 512
+
+
+def _kernel_batch(lm0, aa, em, uniforms):
+    return np.asarray(photon_triton.trace_batch_kernel(
+        lm0, aa, em, uniforms, B, CFG,
+        photon_triton.KernelSpec(aa.group_counts, block=128, interpret=True),
+    ))
 
 
 def _emitter_slice(emitters, e):
@@ -52,9 +53,9 @@ def _emitter_slice(emitters, e):
 
 
 def _assert_wide_matches_xla(scene, emitter_ids=None, uniforms_key=4):
-    """One shared-draws batch per selected emitter: the wide kernel
-    (interpret mode) must reproduce the XLA engine draws-for-draws
-    (gate copied from test_pallas_wide.test_wide_matches_xla_batch)."""
+    """One shared-draws batch per selected emitter: the trace kernel
+    (interpret mode) must reproduce the XLA engine draws-for-draws, up to
+    knife-edge ties between rects at equal distance."""
     rects = pack_rects(scene.walls)
     aa = pack_aa(scene.walls)
     assert aa is not None
@@ -77,13 +78,7 @@ def _assert_wide_matches_xla(scene, emitter_ids=None, uniforms_key=4):
                 lm0, rects, em, uniforms, B, CFG
             )
         )
-        with pltpu.force_tpu_interpret_mode():
-            lm_wide = np.asarray(
-                photon_pallas_wide.trace_batch_wide(
-                    lm0, aa, photon_pallas.emitter_vector(em), uniforms,
-                    B, CFG, sublanes=4,
-                )
-            )
+        lm_wide = _kernel_batch(lm0, aa, em, uniforms)
         assert lm_wide.sum() > 0, f"emitter {e} deposited nothing"
         close = np.isclose(lm_wide, lm_xla, rtol=1e-3, atol=1e-2)
         assert close.mean() > 0.999, (
@@ -147,10 +142,10 @@ def test_window_in_room_corner(tmp_path):
 
 def test_group_axis_zero():
     """A hand-built scene with NO y-facing rects: pack_aa's group_counts
-    gets a zero axis, which the wide kernel must skip without disturbing
+    gets a zero axis, which the kernel must skip without disturbing
     the running minimum (the `if count == 0: continue` path has no layout
     fixture — every compiled apartment has all three axes)."""
-    from flatmatch_tpu.scene.rectangle import create_rect, num_mipmap_texels
+    from flatmatch.scene.rectangle import create_rect, num_mipmap_texels
 
     ts = 200.0
     # pack_aa's axis form: z-normal rects span width on x / height on y,
@@ -193,67 +188,8 @@ def test_group_axis_zero():
             lm0, rects, em, uniforms, B, CFG
         )
     )
-    with pltpu.force_tpu_interpret_mode():
-        lm_wide = np.asarray(
-            photon_pallas_wide.trace_batch_wide(
-                lm0, aa, photon_pallas.emitter_vector(em), uniforms,
-                B, CFG, sublanes=4,
-            )
-        )
+    lm_wide = _kernel_batch(lm0, aa, em, uniforms)
     assert lm_wide.sum() > 0
     close = np.isclose(lm_wide, lm_xla, rtol=1e-3, atol=1e-2)
     assert close.mean() > 0.999, f"only {close.mean():.4%} match"
     np.testing.assert_allclose(lm_wide.sum(), lm_xla.sum(), rtol=1e-4)
-
-
-@pytest.mark.parametrize("seed", [0, 4, 7])
-def test_fuzzed_aa_query_matches_xla_intersector(seed, tmp_path):
-    """Query-kernel parity on fuzzed layouts (round 4: the AA query and
-    AO distance kernels gained the min-tree + unrolled rect loop; fuzzed
-    scenes hit unroll tails and group shapes the hand fixtures don't).
-    Rather than running a whole AO pass under the interpreter (minutes
-    per fuzz scene), this casts a bounded random ray set from texel
-    centers and checks both kernels' nearest-hit distances against the
-    XLA brute-force intersector (ops/intersect.nearest_hit) — the same
-    oracle relationship the engine-level tiny/mini parity tests pin
-    down. Full-engine AO parity: test_ao_parity.py."""
-    from flatmatch_tpu.engines.ao import tile_centers
-    from flatmatch_tpu.engines.ao_pallas import nearest_distances
-    from flatmatch_tpu.ops.aa_query import MISS, aa_nearest
-    from flatmatch_tpu.ops.intersect import nearest_hit
-
-    png = tmp_path / f"fuzz_q_{seed}.png"
-    _random_layout(seed, png)
-    img = im.load_layout(str(png))
-    lay = layout.parse_layout(img, f32(1.0) / f32(30.0), 200.0)
-    scene = geometry.Scene(lay)
-    aa = pack_aa(scene.walls)
-    assert aa is not None
-    rects = pack_rects(scene.walls)
-
-    rng = np.random.default_rng(300 + seed)
-    centers = np.concatenate([tile_centers(w) for w in scene.walls])
-    n = 2048
-    origins = centers[rng.integers(0, len(centers), n)].astype(f32)
-    dirs = rng.normal(size=(n, 3)).astype(f32)
-    dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
-    origins = origins + 1e-5 * dirs  # off-surface, like both engines
-
-    d_xla = np.asarray(nearest_hit(jnp.asarray(origins),
-                                   jnp.asarray(dirs), rects)[0])
-    with pltpu.force_tpu_interpret_mode():
-        d_aa, _ = aa_nearest(aa.fields, origins, dirs, aa.group_counts,
-                             sublanes=8)
-        d_ao = nearest_distances(aa.fields, origins, dirs,
-                                 aa.group_counts, sublanes=8, sky=10.0)
-    d_aa, d_ao = np.asarray(d_aa), np.asarray(d_ao)
-
-    hit = np.isfinite(d_xla) & (d_aa < MISS * 0.5)
-    # both hit or both miss except knife-edge grazing ties
-    agree = (np.isfinite(d_xla) == (d_aa < MISS * 0.5))
-    assert agree.mean() > 0.995, f"{(~agree).mean():.4%} hit/miss flips"
-    rel = np.abs(d_aa[hit] - d_xla[hit]) / np.maximum(d_xla[hit], 1e-6)
-    assert (rel < 1e-4).mean() > 0.995, rel.max()
-    # the AO distance kernel is the same loop with misses -> sky
-    expect = np.where(d_aa < MISS * 0.5, d_aa, f32(10.0))
-    np.testing.assert_array_equal(d_ao, expect)

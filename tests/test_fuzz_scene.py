@@ -16,9 +16,9 @@ import numpy as np
 import pytest
 from PIL import Image
 
-from flatmatch_tpu.scene import geometry, image as im, layout
-from flatmatch_tpu.scene.collision import build_collision_map
-from flatmatch_tpu.scene.rectangle import num_mipmap_texels
+from flatmatch.scene import geometry, image as im, layout
+from flatmatch.scene.collision import build_collision_map
+from flatmatch.scene.rectangle import num_mipmap_texels
 
 f32 = np.float32
 
@@ -99,7 +99,7 @@ def test_fuzzed_layout_compiles_sound(seed, tmp_path):
     scene = geometry.Scene(lay)
 
     # every rect is axis-aligned and the wide engine accepts the scene
-    from flatmatch_tpu.ops.aa_scene import pack_aa
+    from flatmatch.ops.aa_scene import pack_aa
 
     aa = pack_aa(scene.walls)
     assert aa is not None
@@ -142,16 +142,16 @@ def test_fuzzed_layout_compiles_sound(seed, tmp_path):
     assert grid[int(sy * 30.0), int(sx * 30.0)]
 
     # the scene renders: one small XLA photon pass with finite energy
-    from flatmatch_tpu.config import PhotonConfig
-    from flatmatch_tpu.engines import photon
-    from flatmatch_tpu.ops.device_scene import pack_emitters, pack_rects
+    from flatmatch.config import PhotonConfig
+    from flatmatch.engines import schedule
+    from flatmatch.ops.device_scene import pack_emitters, pack_rects
 
     cfg = PhotonConfig(samples_per_area=300.0, photons_per_batch=256, seed=1)
     emitters = pack_emitters(
         scene, cfg.samples_per_area, cfg.window_color, cfg.light_color
     )
     lm = np.asarray(
-        photon.render_photons(
+        schedule.render_photons(
             pack_rects(scene.walls), emitters, scene.num_texels, cfg
         )
     )
@@ -170,7 +170,7 @@ def test_tiled_flagship_scene_scales_exactly():
     docs/DESIGN.md (tools/stress_scale.py)."""
     import pathlib
 
-    from flatmatch_tpu.scene import geometry as geo
+    from flatmatch.scene import geometry as geo
 
     import sys as _sys
 
@@ -230,16 +230,16 @@ def test_tiled_flagship_scene_scales_exactly():
         assert copy_keys == base_keys, f"copy at offset ({ox},{oy}) differs"
 
     # the stress scene renders (tiny budget, XLA engine)
-    from flatmatch_tpu.config import PhotonConfig
-    from flatmatch_tpu.engines import photon
-    from flatmatch_tpu.ops.device_scene import pack_emitters, pack_rects
+    from flatmatch.config import PhotonConfig
+    from flatmatch.engines import schedule
+    from flatmatch.ops.device_scene import pack_emitters, pack_rects
 
     scene = geo.Scene(lay4)
     cfg = PhotonConfig(samples_per_area=20.0, photons_per_batch=512, seed=2)
     emitters = pack_emitters(
         scene, cfg.samples_per_area, cfg.window_color, cfg.light_color
     )
-    lm = np.asarray(photon.render_photons(
+    lm = np.asarray(schedule.render_photons(
         pack_rects(scene.walls), emitters, scene.num_texels, cfg
     ))
     assert np.isfinite(lm).all() and lm.sum() > 0

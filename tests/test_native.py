@@ -8,8 +8,8 @@ import numpy as np
 import pytest
 from scipy import ndimage
 
-from flatmatch_tpu import native
-from flatmatch_tpu.scene import image as im
+from flatmatch import native
+from flatmatch.scene import image as im
 from tests.conftest import FIXTURES
 
 pytestmark = [

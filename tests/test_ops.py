@@ -6,11 +6,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from flatmatch_tpu.ops import geosphere, mipmap, sampling
-from flatmatch_tpu.ops.device_scene import RectsDev, pack_rects
-from flatmatch_tpu.ops.intersect import nearest_hit
-from flatmatch_tpu.ops.tile import texel_index
-from flatmatch_tpu.scene.rectangle import create_rect
+from flatmatch.ops import geosphere, mipmap, sampling
+from flatmatch.ops.device_scene import RectsDev, pack_rects
+from flatmatch.ops.intersect import nearest_hit
+from flatmatch.ops.tile import texel_index
+from flatmatch.scene.rectangle import create_rect
 
 pytestmark = pytest.mark.fast
 
@@ -172,7 +172,7 @@ class TestMipmap:
         r = create_rect((0, 0, 0), (w / 10, 0, 0), (0, h / 10, 0), 1.0)
         r.wtiles, r.htiles = w, h
         r.base = 3  # nonzero arena offset
-        from flatmatch_tpu.scene.rectangle import num_mipmap_texels
+        from flatmatch.scene.rectangle import num_mipmap_texels
 
         total = r.base + num_mipmap_texels(r)
         rng = np.random.default_rng(0)

@@ -1,34 +1,32 @@
-"""Wide AA photon megakernel vs the XLA engine (interpret mode on CPU)."""
-import functools
+"""The photon trace kernel (engines/photon_triton.py, the photon_pallas
+engine) against the XLA engine, in the Pallas interpreter on the CPU."""
+import dataclasses
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-from jax.experimental.pallas import tpu as pltpu
 
-from flatmatch_tpu.config import PhotonConfig
-from flatmatch_tpu.engines import photon, photon_pallas, photon_pallas_wide
-from flatmatch_tpu.ops.aa_scene import pack_aa
-from flatmatch_tpu.ops.device_scene import pack_emitters, pack_rects
-from flatmatch_tpu.scene import geometry, image as im, layout
-from flatmatch_tpu.scene.rectangle import create_rect
+from flatmatch.config import PhotonConfig
+from flatmatch.engines import photon, photon_triton as pt, schedule
+from flatmatch.engines.schedule import emitter_slice
+from flatmatch.ops.aa_scene import pack_aa
+from flatmatch.ops.device_scene import pack_emitters, pack_rects
+from flatmatch.scene.rect_dump import load_rect_dump
+from flatmatch.scene.rectangle import create_rect, num_tiles
 from tests.conftest import FIXTURES
 
-f32 = np.float32
+CFG = PhotonConfig(samples_per_area=2000.0, photons_per_batch=512, seed=9)
 
-# scatter splat: these tests pin exact tracing parity; the bucket splat's
-# bf16 color quantization is covered separately below and in test_splat.py
-CFG = PhotonConfig(
-    samples_per_area=2000.0, photons_per_batch=512, seed=9, splat="scatter"
-)
+
+def spec(aa, block=64, warps=1):
+    return pt.KernelSpec(aa.group_counts, block=block, num_warps=warps,
+                         interpret=True)
 
 
 @pytest.fixture(scope="module")
 def tiny():
-    img = im.load_layout(str(FIXTURES / "tiny.png"))
-    lay = layout.parse_layout(img, f32(1.0) / f32(30.0), 200.0)
-    scene = geometry.Scene(lay)
+    scene = load_rect_dump(FIXTURES / "tiny_rects.txt")
     rects = pack_rects(scene.walls)
     emitters = pack_emitters(
         scene, CFG.samples_per_area, CFG.window_color, CFG.light_color
@@ -36,43 +34,31 @@ def tiny():
     return scene, rects, emitters
 
 
-def test_device_rng_matches_statistically(tiny):
-    """The in-kernel device-PRNG path (cfg.device_rng) targets the same
-    integral as the threefry path: total energy and per-wall energies agree
-    to MC tolerance (interpret mode). The streams differ by design —
-    exactly the reference's CL-LCG vs native-rand() pair."""
-    import dataclasses
-
-    from flatmatch_tpu.scene.rectangle import num_tiles
-
-    scene, rects, emitters = tiny
-    aa = pack_aa(scene.walls)
-    spa = 30000.0
-    base = dataclasses.replace(
-        CFG, samples_per_area=spa, photons_per_batch=1024
+def _uniforms(key, B, cfg=CFG):
+    return jax.random.uniform(
+        jax.random.PRNGKey(key), (B, photon.uniforms_per_photon(cfg.max_depth)),
+        dtype=jnp.float32,
     )
-    ems = pack_emitters(scene, spa, base.window_color, base.light_color)
+
+
+def test_device_rng_matches_statistically(tiny):
+    """The in-kernel counter-hash RNG (cfg.device_rng) targets the same
+    integral as the threefry draws: total and per-wall energies agree to
+    MC tolerance, and the run is deterministic. The streams differ by
+    design — exactly the reference's CL-LCG vs native-rand() pair."""
+    scene, rects, _ = tiny
+    aa = pack_aa(scene.walls)
+    base = dataclasses.replace(CFG, samples_per_area=30000.0,
+                               photons_per_batch=1024)
+    ems = pack_emitters(scene, base.samples_per_area, base.window_color,
+                        base.light_color)
     cfg_rng = dataclasses.replace(base, device_rng=True)
-    # sublanes=8 -> one 1024-photon block per batch: draws are keyed by
-    # GLOBAL photon index on both paths, so block height changes nothing
-    # but interpret-mode overhead (8x fewer kernel interpretations)
-    with pltpu.force_tpu_interpret_mode():
-        a = np.asarray(
-            photon_pallas_wide.render_photons(
-                rects, ems, scene.num_texels, base, aa, sublanes=8
-            )
-        )
-        b = np.asarray(
-            photon_pallas_wide.render_photons(
-                rects, ems, scene.num_texels, cfg_rng, aa, sublanes=8
-            )
-        )
-        # deterministic for a fixed seed schedule
-        b2 = np.asarray(
-            photon_pallas_wide.render_photons(
-                rects, ems, scene.num_texels, cfg_rng, aa, sublanes=8
-            )
-        )
+
+    def run(cfg):
+        return np.asarray(schedule.render_photons(
+            rects, ems, scene.num_texels, cfg, kernel=spec(aa), aa=aa))
+
+    a, b, b2 = run(base), run(cfg_rng), run(cfg_rng)
     np.testing.assert_array_equal(b, b2)
     np.testing.assert_allclose(b.sum(), a.sum(), rtol=0.03)
     for r in scene.walls:
@@ -88,6 +74,7 @@ def test_pack_aa_accepts_layout_scenes(tiny):
     assert aa is not None
     assert sum(aa.group_counts) == len(scene.walls)
     assert aa.fields.shape[1] == len(scene.walls)
+    assert sorted(np.asarray(aa.base)) == sorted(r.base for r in scene.walls)
 
 
 def test_pack_aa_rejects_tilted_rect():
@@ -97,377 +84,108 @@ def test_pack_aa_rejects_tilted_rect():
 
 @pytest.mark.fast
 def test_wide_matches_xla_batch(tiny):
+    """Same draws, same deposits: the kernel's lightmap equals
+    engines/photon.trace_batch's bit for bit."""
     scene, rects, emitters = tiny
     aa = pack_aa(scene.walls)
     B = 1024
-    U = photon.uniforms_per_photon(CFG.max_depth)
-    uniforms = jax.random.uniform(
-        jax.random.PRNGKey(4), (B, U), dtype=np.float32
-    )
-    em = photon.EmitterSlice(
-        pos=emitters.pos[0],
-        wvec=emitters.wvec[0],
-        hvec=emitters.hvec[0],
-        n=emitters.n[0],
-        color=emitters.color[0],
-        is_window=emitters.is_window[0],
-    )
+    uniforms = _uniforms(4, B)
+    em = emitter_slice(emitters, 0)
     lm0 = jnp.zeros((scene.num_texels, 3), jnp.float32)
     lm_xla = np.asarray(
         jax.jit(photon.trace_batch, static_argnames=("cfg",))(
             lm0, rects, em, uniforms, B, CFG
         )
     )
-    with pltpu.force_tpu_interpret_mode():
-        lm_wide = np.asarray(
-            photon_pallas_wide.trace_batch_wide(
-                lm0,
-                aa,
-                photon_pallas.emitter_vector(em),
-                uniforms,
-                B,
-                CFG,
-                sublanes=4,
-            )
-        )
-    assert lm_wide.sum() > 0
-    close = np.isclose(lm_wide, lm_xla, rtol=1e-3, atol=1e-2)
-    assert close.mean() > 0.999, f"only {close.mean():.4%} match"
-    np.testing.assert_allclose(lm_wide.sum(), lm_xla.sum(), rtol=1e-4)
+    lm_kernel = np.asarray(
+        pt.trace_batch_kernel(lm0, aa, em, uniforms, B, CFG, spec(aa))
+    )
+    assert lm_kernel.sum() > 0
+    np.testing.assert_array_equal(lm_kernel, lm_xla)
 
 
 def test_wide_masks_invalid_photons(tiny):
     scene, rects, emitters = tiny
     aa = pack_aa(scene.walls)
     B = 512
-    U = photon.uniforms_per_photon(CFG.max_depth)
-    uniforms = jax.random.uniform(
-        jax.random.PRNGKey(5), (B, U), dtype=np.float32
-    )
-    em = photon.EmitterSlice(
-        pos=emitters.pos[0],
-        wvec=emitters.wvec[0],
-        hvec=emitters.hvec[0],
-        n=emitters.n[0],
-        color=emitters.color[0],
-        is_window=emitters.is_window[0],
-    )
+    uniforms = _uniforms(5, B)
+    em = emitter_slice(emitters, 0)
     lm0 = jnp.zeros((scene.num_texels, 3), jnp.float32)
-    run = functools.partial(
-        photon_pallas_wide.trace_batch_wide,
-        lm0,
-        aa,
-        photon_pallas.emitter_vector(em),
-        uniforms,
-        cfg=CFG,
-        sublanes=4,
-    )
-    with pltpu.force_tpu_interpret_mode():
-        half = np.asarray(run(n_valid=256))
-        full = np.asarray(run(n_valid=512))
+
+    def run(n_valid):
+        return np.asarray(pt.trace_batch_kernel(
+            lm0, aa, em, uniforms, n_valid, CFG, spec(aa)))
+
+    half, full = run(256), run(512)
     assert 0 < half.sum() < full.sum()
     lm_xla_half = np.asarray(
         jax.jit(photon.trace_batch, static_argnames=("cfg",))(
             lm0, rects, em, uniforms, 256, CFG
         )
     )
-    np.testing.assert_allclose(half.sum(), lm_xla_half.sum(), rtol=1e-4)
+    np.testing.assert_array_equal(half, lm_xla_half)
 
 
-def test_wide_inkernel_splat_matches_fused(tiny):
-    """The fused trace+splat kernel (cfg.splat='inkernel') bins the exact
-    same deposits as trace_deposits_wide + ops/splat_pallas.fused_splat:
-    identical one-hots, identical bf16 color quantization — only the f32
-    accumulation order differs, so agreement is ~1 ulp, and the device-RNG
-    variant must be deterministic."""
-    import dataclasses
-
-    from flatmatch_tpu.ops.splat_pallas import fused_splat
-
+@pytest.mark.parametrize("rng", ["threefry", "device_rng"])
+def test_tail_shrink_bit_identical(tiny, rng):
+    """Blocks past n_valid (an emitter's masked tail) skip the trace and
+    deposit nothing; the live photons' deposits do not depend on how many
+    dead blocks follow them: a batch launched at its full size equals
+    the same photons launched on a shrunk grid."""
     scene, rects, emitters = tiny
     aa = pack_aa(scene.walls)
-    B = 1024
-    U = photon.uniforms_per_photon(CFG.max_depth)
-    uniforms = jax.random.uniform(
-        jax.random.PRNGKey(7), (B, U), dtype=np.float32
-    )
-    em = photon.EmitterSlice(
-        pos=emitters.pos[0], wvec=emitters.wvec[0], hvec=emitters.hvec[0],
-        n=emitters.n[0], color=emitters.color[0],
-        is_window=emitters.is_window[0],
-    )
-    ev = photon_pallas.emitter_vector(em)
-    with pltpu.force_tpu_interpret_mode():
-        idx, col = photon_pallas_wide.trace_deposits_wide(
-            aa.fields, ev, uniforms, B, CFG, aa.group_counts, sublanes=4
-        )
-        ref = np.asarray(fused_splat(idx, col, scene.num_texels))
-        got = np.asarray(
-            photon_pallas_wide.trace_splat_wide(
-                aa.fields, ev, uniforms, B, CFG, aa.group_counts,
-                scene.num_texels, sublanes=4,
-            )
-        )
-        # the production entry point routes through the same kernel
-        lm0 = jnp.zeros((scene.num_texels, 3), jnp.float32)
-        via_cfg = np.asarray(
-            photon_pallas_wide.trace_batch_wide(
-                lm0, aa, ev, uniforms, B,
-                dataclasses.replace(CFG, splat="inkernel"), sublanes=4,
-            )
-        )
-        # device-RNG fused variant: deterministic per seed
-        r1 = np.asarray(
-            photon_pallas_wide.trace_splat_wide_rng(
-                aa.fields, ev, 123, B, CFG, aa.group_counts,
-                scene.num_texels, batch_size=B, sublanes=4,
-            )
-        )
-        r2 = np.asarray(
-            photon_pallas_wide.trace_splat_wide_rng(
-                aa.fields, ev, 123, B, CFG, aa.group_counts,
-                scene.num_texels, batch_size=B, sublanes=4,
-            )
-        )
-    assert got.sum() > 0
-    np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-5)
-    np.testing.assert_array_equal(via_cfg, got)
-    np.testing.assert_array_equal(r1, r2)
-    assert r1.sum() > 0
-    np.testing.assert_allclose(r1.sum(), got.sum(), rtol=0.15)
-
-
-@pytest.mark.parametrize("splat,rtol", [("bucket", 6e-3), ("bucket_exact", 1e-4)])
-def test_wide_bucket_splat_modes(tiny, splat, rtol):
-    """Bucket splat vs scatter on identical deposits: single-pass carries
-    the bf16 color quantization, two-pass is f32-grade."""
-    import dataclasses
-
-    scene, rects, emitters = tiny
-    aa = pack_aa(scene.walls)
-    B = 512
-    U = photon.uniforms_per_photon(CFG.max_depth)
-    uniforms = jax.random.uniform(
-        jax.random.PRNGKey(6), (B, U), dtype=np.float32
-    )
-    em = photon.EmitterSlice(
-        pos=emitters.pos[0], wvec=emitters.wvec[0], hvec=emitters.hvec[0],
-        n=emitters.n[0], color=emitters.color[0],
-        is_window=emitters.is_window[0],
-    )
-    lm0 = jnp.zeros((scene.num_texels, 3), jnp.float32)
-    ev = photon_pallas.emitter_vector(em)
-    with pltpu.force_tpu_interpret_mode():
-        ref = np.asarray(
-            photon_pallas_wide.trace_batch_wide(
-                lm0, aa, ev, uniforms, B, CFG, sublanes=4
-            )
-        )
-        got = np.asarray(
-            photon_pallas_wide.trace_batch_wide(
-                lm0, aa, ev, uniforms, B,
-                dataclasses.replace(CFG, splat=splat), sublanes=4,
-            )
-        )
-    np.testing.assert_allclose(got, ref, rtol=rtol, atol=rtol * 10)
-
-
-def test_wide_splat_i8_matches_fused_statistically(tiny):
-    """cfg.splat='fused_i8' on identical deposits: energy is unbiased
-    (dithered quantization) and per-texel error stays at the 7-bit grid's
-    noise level; the run is deterministic."""
-    import dataclasses
-
-    scene, rects, emitters = tiny
-    aa = pack_aa(scene.walls)
-    B = 512
-    U = photon.uniforms_per_photon(CFG.max_depth)
-    uniforms = jax.random.uniform(
-        jax.random.PRNGKey(6), (B, U), dtype=np.float32
-    )
-    em = photon.EmitterSlice(
-        pos=emitters.pos[0], wvec=emitters.wvec[0], hvec=emitters.hvec[0],
-        n=emitters.n[0], color=emitters.color[0],
-        is_window=emitters.is_window[0],
-    )
-    lm0 = jnp.zeros((scene.num_texels, 3), jnp.float32)
-    ev = photon_pallas.emitter_vector(em)
-    cfg_i8 = dataclasses.replace(CFG, splat="fused_i8")
-    scale = photon_pallas_wide.splat_color_scale(cfg_i8)
-    with pltpu.force_tpu_interpret_mode():
-        ref = np.asarray(
-            photon_pallas_wide.trace_batch_wide(
-                lm0, aa, ev, uniforms, B, CFG, sublanes=4
-            )
-        )
-        got = np.asarray(
-            photon_pallas_wide.trace_batch_wide(
-                lm0, aa, ev, uniforms, B, cfg_i8, sublanes=4
-            )
-        )
-        again = np.asarray(
-            photon_pallas_wide.trace_batch_wide(
-                lm0, aa, ev, uniforms, B, cfg_i8, sublanes=4
-            )
-        )
-    np.testing.assert_array_equal(got, again)
-    # unbiased: total energy within MC-noise of the f32 splat
-    np.testing.assert_allclose(got.sum(), ref.sum(), rtol=2e-3)
-    # per-texel: bounded by the grid step times the deposit multiplicity
-    assert np.abs(got - ref).max() < scale * 40  # few deposits/texel here
-    assert np.abs(got - ref).mean() < scale
-
-    # the in-kernel int8 variant (splat fused INTO the trace kernel):
-    # same quantization grid, different (self-consistent) dither keying —
-    # statistically identical, deterministic
-    cfg_ik8 = dataclasses.replace(CFG, splat="inkernel_i8")
-    with pltpu.force_tpu_interpret_mode():
-        ik = np.asarray(
-            photon_pallas_wide.trace_batch_wide(
-                lm0, aa, ev, uniforms, B, cfg_ik8, sublanes=4
-            )
-        )
-        ik2 = np.asarray(
-            photon_pallas_wide.trace_batch_wide(
-                lm0, aa, ev, uniforms, B, cfg_ik8, sublanes=4
-            )
-        )
-    np.testing.assert_array_equal(ik, ik2)
-    np.testing.assert_allclose(ik.sum(), ref.sum(), rtol=2e-3)
-    assert np.abs(ik - ref).max() < scale * 40
-    assert np.abs(ik - ref).mean() < scale
-
-
-@pytest.mark.parametrize("splat", ["scatter", "inkernel_i8"])
-def test_tail_shrink_bit_identical(tiny, splat):
-    """The whole-schedule fast path peels each emitter's tail batch and
-    launches it on a shrunk grid (device-RNG path): counters depend only on
-    (seed, batch, block), so dropping all-masked trailing blocks must be
-    bit-identical to the segmented full-batch path. 'inkernel_i8' is the
-    production CLI default — its dither keys (rgid*3D + 3d + ch) also
-    depend only on (batch seed, block, bounce), so the peel stays exact."""
-    import dataclasses
-
-    scene, rects, emitters = tiny
-    cfg = dataclasses.replace(
-        CFG, photons_per_batch=1024, device_rng=True,
-        samples_per_area=3000.0, splat=splat,
-    )
-    em = pack_emitters(
-        scene, cfg.samples_per_area, cfg.window_color, cfg.light_color
-    )
-    aa = pack_aa(scene.walls)
-    with pltpu.force_tpu_interpret_mode():
-        fast = photon_pallas_wide.render_photons(
-            rects, em, scene.num_texels, cfg, aa, sublanes=2
-        )
-        slow = photon_pallas_wide.render_photons(
-            rects, em, scene.num_texels, cfg, aa, sublanes=2,
-            on_segment=lambda lm, d, t: None,  # forces the segmented path
-        )
-    np.testing.assert_array_equal(np.asarray(fast), np.asarray(slow))
+    ev = pt.emitter_vector(emitter_slice(emitters, 0))
+    B, n_valid, B_small = 1024, 200, 256
+    if rng == "threefry":
+        u = _uniforms(6, B)
+        full = pt.trace_deposits(aa.fields, aa.base, ev, u, n_valid, CFG,
+                                 spec(aa))
+        small = pt.trace_deposits(aa.fields, aa.base, ev, u[:B_small],
+                                  n_valid, CFG, spec(aa))
+    else:
+        full = pt.trace_deposits_rng(aa.fields, aa.base, ev, 77, n_valid, B,
+                                     CFG, spec(aa))
+        small = pt.trace_deposits_rng(aa.fields, aa.base, ev, 77, n_valid,
+                                      B_small, CFG, spec(aa))
+    (fi, fc), (si, sc) = [tuple(map(np.asarray, x)) for x in (full, small)]
+    np.testing.assert_array_equal(fi[:, :B_small], si)
+    np.testing.assert_array_equal(fc[:, :, :B_small], sc)
+    assert (fi[:, n_valid:] == photon.DEAD).all()
+    assert (fc[:, :, n_valid:] == 0).all()
+    assert (fi[:, :n_valid] != photon.DEAD).any()
 
 
 def test_device_rng_sharded_decorrelation(tiny):
-    """Per-device RNG seeds must be avalanche-mixed: the kernel's counter
-    hash starts from rgid*C + seed, so the old additive seed + ax*C scheme
-    made device ax's photon g draw the EXACT uniforms of device 0's photon
-    g+ax (shifted-copy streams, no variance reduction from the mesh).
+    """Per-device RNG seeds must be avalanche-mixed: the counter hash
+    starts from gid*C + seed, so an additive seed + ax*C scheme makes
+    device ax's photon g draw the EXACT uniforms of device 0's photon g+ax
+    (shifted-copy streams, no variance reduction from the mesh).
     device_seed destroys that structure."""
     scene, rects, emitters = tiny
     aa = pack_aa(scene.walls)
-    B, S = 512, 4  # one kernel block: photon g at (s, l) = (g//128, g%128)
+    B = 512
     C = -1640531527
-    em = photon.EmitterSlice(
-        pos=emitters.pos[0], wvec=emitters.wvec[0], hvec=emitters.hvec[0],
-        n=emitters.n[0], color=emitters.color[0],
-        is_window=emitters.is_window[0],
-    )
-    ev = photon_pallas.emitter_vector(em)
-    base = photon_pallas_wide.batch_seed(CFG.seed, 0)
-
-    def photon_major(idx, col):
-        # deposit streams -> [B, D, 4] rows of (texel id, r, g, b) keyed by
-        # photon id. Colors alone are NOT discriminating (they take a small
-        # discrete set of values — start color x albedo^k x tint — so
-        # independent photons with the same bounce-type history collide);
-        # the texel id is position-dependent and breaks those ties.
-        D = CFG.max_depth
-        col = (
-            np.asarray(col)
-            .reshape(1, D, S * 128, 3)
-            .transpose(0, 2, 1, 3)
-            .reshape(B, D, 3)
-        )
-        idx = (
-            np.asarray(idx).reshape(1, D, S * 128).transpose(0, 2, 1)
-            .reshape(B, D, 1)
-        )
-        return np.concatenate([idx.astype(np.float64), col], axis=2)
+    ev = pt.emitter_vector(emitter_slice(emitters, 0))
+    base = pt.batch_seed(CFG.seed, 0)
 
     def run(seed):
-        idx, col = photon_pallas_wide.trace_deposits_wide_rng(
-            aa.fields, ev, seed, B, CFG, aa.group_counts, B, sublanes=S
-        )
-        return photon_major(idx, col)
+        # deposit streams -> [B, D, 4] rows of (texel id, r, g, b) per
+        # photon; the texel id breaks ties between photons whose colors
+        # coincide (colors take a small discrete set of values)
+        idx, col = pt.trace_deposits_rng(aa.fields, aa.base, ev, seed, B, B,
+                                         CFG, spec(aa))
+        idx = np.asarray(idx).T[..., None].astype(np.float64)
+        col = np.asarray(col).transpose(2, 1, 0)
+        return np.concatenate([idx, col], axis=2)
 
-    with pltpu.force_tpu_interpret_mode():
-        # OLD scheme: additive ax*C offsets -> exact shifted copies
-        a_old = run(base)
-        b_old = run(base + np.int32(C))
-        # NEW scheme
-        a_new = run(photon_pallas_wide.device_seed(base, 0))
-        b_new = run(photon_pallas_wide.device_seed(base, 1))
-
-    # the old scheme's device-1 photon g IS device-0 photon g+1
+    a_old, b_old = run(base), run(base + np.int32(C))
+    a_new, b_new = run(pt.device_seed(base, 0)), run(pt.device_seed(base, 1))
+    # the additive scheme's device-1 photon g IS device-0 photon g+1
     np.testing.assert_array_equal(b_old[:-1], a_old[1:])
-    # the fix: essentially no photon of device 1 replays any device-0
-    # photon at any small shift
+    live_rows = lambda x: np.any(x[..., 1:] != 0, axis=(1, 2))  # noqa: E731
     for shift in range(4):
         a = a_new[shift:] if shift else a_new
         b = b_new[: B - shift]
-        # dead photons deposit all-zero rows in both streams; only a live
-        # photon replaying a live photon indicates correlation
-        live = np.any(a != 0, axis=(1, 2)) & np.any(b != 0, axis=(1, 2))
+        live = live_rows(a) & live_rows(b)
         same = np.all(a == b, axis=(1, 2)) & live
         assert same.sum() <= max(1, 0.01 * live.sum()), (shift, same.sum())
-
-
-def test_fused_splat_capacity_degradation(tiny, monkeypatch):
-    """Past the measured fused-splat VMEM ceiling the wide engine degrades
-    to the exact deposit-stream tier with a warning instead of failing
-    Mosaic compilation (round-4 VERDICT #2; ceiling measured by
-    tools/stress_scale.py on v5e). Forced here by shrinking the limit;
-    the degraded render must equal an explicit scatter-tier run."""
-    import dataclasses
-
-    scene, rects, emitters = tiny
-    aa = pack_aa(scene.walls)
-    W = photon_pallas_wide
-
-    import io
-    from contextlib import redirect_stderr
-
-    cfg_fused = dataclasses.replace(CFG, splat="inkernel")
-    # arithmetic: below the limit nothing changes
-    assert W.maybe_degrade_splat(cfg_fused, 10_000) is cfg_fused
-    # non-fused tiers are never touched
-    assert W.maybe_degrade_splat(CFG, 1 << 30) is CFG
-
-    monkeypatch.setattr(W, "FUSED_ACC_VMEM_LIMIT_BYTES", 1024)
-    err = io.StringIO()
-    with redirect_stderr(err):
-        out_cfg = W.maybe_degrade_splat(cfg_fused, 10_000)
-    assert out_cfg.splat == "scatter"
-    # the helper warns ITSELF, so no entry point can degrade silently
-    assert "VMEM" in err.getvalue()
-
-    with pltpu.force_tpu_interpret_mode():
-        degraded = np.asarray(photon_pallas_wide.render_photons(
-            rects, emitters, scene.num_texels, cfg_fused, aa, sublanes=1
-        ))
-        scatter = np.asarray(photon_pallas_wide.render_photons(
-            rects, emitters, scene.num_texels, CFG, aa, sublanes=1
-        ))
-    np.testing.assert_array_equal(degraded, scatter)
-    assert degraded.sum() > 0

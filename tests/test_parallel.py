@@ -6,11 +6,11 @@ import jax
 import numpy as np
 import pytest
 
-from flatmatch_tpu.config import PhotonConfig
-from flatmatch_tpu.engines import photon
-from flatmatch_tpu.ops.device_scene import pack_emitters, pack_rects
-from flatmatch_tpu.parallel.mesh import photon_mesh, render_photons_sharded
-from flatmatch_tpu.scene import geometry, image as im, layout
+from flatmatch.config import PhotonConfig
+from flatmatch.engines import schedule
+from flatmatch.ops.device_scene import pack_emitters, pack_rects
+from flatmatch.parallel.mesh import photon_mesh, render_photons_sharded
+from flatmatch.scene import geometry, image as im, layout
 from tests.conftest import FIXTURES
 
 f32 = np.float32
@@ -56,13 +56,13 @@ def test_sharded_matches_single_chip_statistically(tiny):
         render_photons_sharded(rects, emitters, scene.num_texels, CFG, mesh)
     )
     single = np.asarray(
-        photon.render_photons(rects, emitters, scene.num_texels, CFG)
+        schedule.render_photons(rects, emitters, scene.num_texels, CFG)
     )
     assert sharded.shape == single.shape
     np.testing.assert_allclose(sharded.sum(), single.sum(), rtol=0.02)
     # per-wall energy also agrees (coarser than per-texel, robust to noise)
     for r in scene.walls:
-        from flatmatch_tpu.scene.rectangle import num_tiles
+        from flatmatch.scene.rectangle import num_tiles
 
         s = sharded[r.base : r.base + num_tiles(r)].sum()
         t = single[r.base : r.base + num_tiles(r)].sum()
@@ -71,93 +71,32 @@ def test_sharded_matches_single_chip_statistically(tiny):
 
 
 def test_sharded_wide_matches_sharded_xla(tiny):
-    """The sharded wide-Pallas engine keys draws per (batch, device) exactly
-    like the sharded XLA engine, so at the scatter splat the two trace
-    identical photons (interpret mode on CPU)."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    from flatmatch_tpu.ops.aa_scene import pack_aa
-    from flatmatch_tpu.parallel.mesh import render_photons_sharded_wide
+    """The sharded trace-kernel engine keys draws per (batch, device)
+    exactly like the sharded XLA engine, so the two trace identical photons
+    and, with the CPU's in-order scatter, produce identical lightmaps
+    (interpret mode)."""
+    from flatmatch.engines.photon_triton import KernelSpec
+    from flatmatch.ops.aa_scene import pack_aa
 
     scene, rects, emitters = tiny
     aa = pack_aa(scene.walls)
-    assert aa is not None
     mesh = photon_mesh()
-    # reduced budget: the keying property is per-photon, not statistical,
-    # so a few batches of coverage gate it (interpret mode is ~1000x)
-    cfg = dataclasses.replace(CFG, splat="scatter", samples_per_area=4000.0)
+    # reduced budget: the keying property is per-photon, not statistical
+    cfg = dataclasses.replace(CFG, samples_per_area=4000.0)
     ems = pack_emitters(
         scene, cfg.samples_per_area, cfg.window_color, cfg.light_color
     )
     xla = np.asarray(
         render_photons_sharded(rects, ems, scene.num_texels, cfg, mesh)
     )
-    with pltpu.force_tpu_interpret_mode():
-        wide = np.asarray(
-            render_photons_sharded_wide(
-                rects, ems, scene.num_texels, cfg, aa, mesh
-            )
+    kernel = np.asarray(
+        render_photons_sharded(
+            rects, ems, scene.num_texels, cfg, mesh,
+            kernel=KernelSpec(aa.group_counts, interpret=True), aa=aa,
         )
-    np.testing.assert_allclose(wide, xla, rtol=2e-5, atol=2e-3)
-
-
-def test_sharded_wide_inkernel_matches_fused(tiny):
-    """The sharded fused trace+splat path (cfg.splat='inkernel') bins the
-    same deposits as the sharded separate fused-splat path — identical
-    draws, identical bf16 quantization, only f32 accumulation order
-    differs."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    from flatmatch_tpu.ops.aa_scene import pack_aa
-    from flatmatch_tpu.parallel.mesh import render_photons_sharded_wide
-
-    scene, rects, emitters = tiny
-    aa = pack_aa(scene.walls)
-    # 2 devices + reduced budget: the property (two splat modes bin the
-    # same deposits under sharding) is per-deposit; the 8-device mesh is
-    # exercised by the other sharded tests
-    mesh = photon_mesh(jax.devices()[:2])
-    cfg = dataclasses.replace(CFG, samples_per_area=4000.0)
-    ems = pack_emitters(
-        scene, cfg.samples_per_area, cfg.window_color, cfg.light_color
     )
-    with pltpu.force_tpu_interpret_mode():
-        ref = np.asarray(
-            render_photons_sharded_wide(
-                rects, ems, scene.num_texels,
-                dataclasses.replace(cfg, splat="fused"), aa, mesh,
-            )
-        )
-        got = np.asarray(
-            render_photons_sharded_wide(
-                rects, ems, scene.num_texels,
-                dataclasses.replace(cfg, splat="inkernel"), aa, mesh,
-            )
-        )
-    assert got.sum() > 0
-    np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-5)
-
-    # the int8-rate variant under sharding: deterministic, unbiased
-    # (energy to MC tolerance), per-texel within the 7-bit grid's noise
-    from flatmatch_tpu.engines.photon_pallas_wide import splat_color_scale
-
-    cfg_i8 = dataclasses.replace(cfg, splat="inkernel_i8")
-    with pltpu.force_tpu_interpret_mode():
-        i8 = np.asarray(
-            render_photons_sharded_wide(
-                rects, ems, scene.num_texels, cfg_i8, aa, mesh,
-            )
-        )
-        i8b = np.asarray(
-            render_photons_sharded_wide(
-                rects, ems, scene.num_texels, cfg_i8, aa, mesh,
-            )
-        )
-    np.testing.assert_array_equal(i8, i8b)
-    np.testing.assert_allclose(i8.sum(), ref.sum(), rtol=2e-3)
-    scale = splat_color_scale(cfg_i8)
-    assert np.abs(i8 - ref).max() < scale * 40
-    assert np.abs(i8 - ref).mean() < scale
+    assert kernel.sum() > 0
+    np.testing.assert_array_equal(kernel, xla)
 
 
 def test_sharded_checkpoint_resume_bit_identical(tiny, tmp_path):
@@ -182,7 +121,7 @@ def test_sharded_checkpoint_resume_bit_identical(tiny, tmp_path):
     np.testing.assert_array_equal(straight, chunked)
 
     # the saved cursor resumes to the same result
-    from flatmatch_tpu.utils import checkpoint as ckpt
+    from flatmatch.utils import checkpoint as ckpt
 
     B = CFG.photons_per_batch
     fp = ckpt.config_fingerprint(
@@ -196,8 +135,8 @@ def test_pipeline_auto_selects_sharded_engine(tiny):
     """render.run_engine with mesh='auto' on the 8-device env dispatches the
     sharded engine and matches the single-device path statistically
     (VERDICT r1 #1: the dispatch IS the pipeline)."""
-    from flatmatch_tpu.config import DEFAULT_CONFIG, Engine
-    from flatmatch_tpu.render import run_engine
+    from flatmatch.config import DEFAULT_CONFIG, Engine
+    from flatmatch.render import run_engine
 
     scene, rects, emitters = tiny
     cfg = DEFAULT_CONFIG.replace(engine=Engine.PHOTON_XLA, photon=CFG)
@@ -208,63 +147,12 @@ def test_pipeline_auto_selects_sharded_engine(tiny):
     )
 
 
-def test_sharded_ao_bit_identical(tiny):
-    """AO sharded over the mesh is BIT-identical to the single-device
-    Pallas engine (deterministic, texel-disjoint work, no collectives)."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    from flatmatch_tpu.config import AoConfig
-    from flatmatch_tpu.engines import ao_pallas
-    from flatmatch_tpu.ops.aa_scene import pack_aa
-    from flatmatch_tpu.parallel.mesh import render_ao_sharded
-
-    scene, rects, emitters = tiny
-    aa = pack_aa(scene.walls)
-    # geosphere level 2 (19 rays/texel): same mechanism, 25x less
-    # interpret-mode work than the production 481-ray table (whose
-    # on-hardware parity is gated by tools/ao_hardware_gate.py)
-    cfg = AoConfig(geosphere_level=2)
-    # 2 devices: texel-disjoint bit-identity holds per shard; halves the
-    # interpret-mode kernel count vs the full 8-device mesh
-    with pltpu.force_tpu_interpret_mode():
-        single = ao_pallas.render_ao(scene, aa, cfg)
-        sharded = render_ao_sharded(
-            scene, aa, cfg, photon_mesh(jax.devices()[:2])
-        )
-    np.testing.assert_allclose(sharded, single, rtol=1e-6, atol=1e-6)
-
-
-def test_sharded_fused_ao_bit_identical(tiny):
-    """The fused-expansion AO (production default since round 5) sharded
-    over the mesh is BIT-identical to the single-device fused pass: the
-    per-wall texel blocks divide across devices (device padding replays
-    block 0, discarded by the gather-back), zero collectives."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    from flatmatch_tpu.config import AoConfig
-    from flatmatch_tpu.engines import ao_pallas
-    from flatmatch_tpu.ops.aa_scene import pack_aa
-    from flatmatch_tpu.parallel.mesh import render_ao_fused_sharded
-
-    scene, rects, emitters = tiny
-    aa = pack_aa(scene.walls)
-    cfg = AoConfig(geosphere_level=2)   # see test_sharded_ao_bit_identical
-    with pltpu.force_tpu_interpret_mode():
-        single = ao_pallas.render_ao_fused(scene, aa, cfg, sublanes=8)
-        # 3 devices: exercises REAL block padding (block counts are not
-        # a multiple of 3)
-        sharded = render_ao_fused_sharded(
-            scene, aa, cfg, photon_mesh(jax.devices()[:3]), sublanes=8
-        )
-    np.testing.assert_array_equal(sharded, single)
-
-
 def test_sharded_radiosity_matches_statistically(tiny):
     """Radiosity with the ray axis sharded over the mesh targets the same
     integral as the single-device engine (different ray partition, so
     agreement is statistical)."""
-    from flatmatch_tpu.config import RadiosityConfig
-    from flatmatch_tpu.engines.radiosity import (
+    from flatmatch.config import RadiosityConfig
+    from flatmatch.engines.radiosity import (
         render_radiosity, render_radiosity_sharded,
     )
 
@@ -308,11 +196,11 @@ def test_sharded_fit_recovers_power():
     (the mesh path of diff/fit.py)."""
     import jax.numpy as jnp
 
-    from flatmatch_tpu.config import PhotonConfig
-    from flatmatch_tpu.diff.fit import fit_materials, make_renderer
-    from flatmatch_tpu.ops.device_scene import pack_emitters, pack_rects
-    from flatmatch_tpu.parallel.mesh import photon_mesh
-    from flatmatch_tpu.scene import geometry, image as im, layout
+    from flatmatch.config import PhotonConfig
+    from flatmatch.diff.fit import fit_materials, make_renderer
+    from flatmatch.ops.device_scene import pack_emitters, pack_rects
+    from flatmatch.parallel.mesh import photon_mesh
+    from flatmatch.scene import geometry, image as im, layout
     from tests.conftest import FIXTURES
 
     img = im.load_layout(str(FIXTURES / "tiny.png"))
@@ -353,9 +241,9 @@ def test_sharded_segment_lowers_one_psum_and_local_batches(tiny):
     it either)."""
     import jax.numpy as jnp
 
-    from flatmatch_tpu.engines.photon import uniforms_per_photon
-    from flatmatch_tpu.engines.schedule import emitter_slice
-    from flatmatch_tpu.parallel.mesh import _trace_emitter_sharded
+    from flatmatch.engines.photon import uniforms_per_photon
+    from flatmatch.engines.schedule import emitter_slice
+    from flatmatch.parallel.mesh import _trace_emitter_sharded
 
     scene, rects, emitters = tiny
     cfg = CFG
@@ -372,43 +260,3 @@ def test_sharded_segment_lowers_one_psum_and_local_batches(tiny):
     assert txt.count("all_reduce") == 1, txt.count("all_reduce")
     assert f"tensor<{b_local}x{U}xf32>" in txt, "shard-local uniforms"
     assert f"tensor<{B}x{U}xf32>" not in txt, "global-size uniforms leaked"
-
-
-def test_sharded_wide_degrades_fused_splat(tiny, monkeypatch):
-    """Past the fused-splat VMEM ceiling the SHARDED wide engine degrades
-    to the deposit-stream tier exactly like the single-chip one (the
-    replicated accumulator makes the per-chip footprint identical):
-    forced by shrinking the limit; output equals an explicit scatter-tier
-    sharded run."""
-    import dataclasses
-    import io
-    from contextlib import redirect_stderr
-
-    from jax.experimental.pallas import tpu as pltpu
-
-    from flatmatch_tpu.engines import photon_pallas_wide as W
-    from flatmatch_tpu.ops.aa_scene import pack_aa
-    from flatmatch_tpu.parallel.mesh import render_photons_sharded_wide
-
-    scene, rects, emitters = tiny
-    aa = pack_aa(scene.walls)
-    cfg_fused = dataclasses.replace(
-        CFG, splat="inkernel", photons_per_batch=512,
-        samples_per_area=5000.0,
-    )
-    cfg_scatter = dataclasses.replace(cfg_fused, splat="scatter")
-    mesh = photon_mesh(jax.devices()[:2])
-    monkeypatch.setattr(W, "FUSED_ACC_VMEM_LIMIT_BYTES", 1024)
-    err = io.StringIO()
-    with pltpu.force_tpu_interpret_mode(), redirect_stderr(err):
-        degraded = np.asarray(render_photons_sharded_wide(
-            rects, emitters, scene.num_texels, cfg_fused, aa, mesh,
-            sublanes=1,
-        ))
-        scatter = np.asarray(render_photons_sharded_wide(
-            rects, emitters, scene.num_texels, cfg_scatter, aa, mesh,
-            sublanes=1,
-        ))
-    assert "VMEM" in err.getvalue()
-    np.testing.assert_array_equal(degraded, scatter)
-    assert degraded.sum() > 0

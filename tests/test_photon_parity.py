@@ -1,22 +1,22 @@
 """XLA photon engine vs NumPy oracle at shared RNG (SURVEY.md §4: lightmap
-comparisons between the TPU kernel and a NumPy oracle at fixed RNG)."""
+comparisons between the device engine and a NumPy oracle at fixed RNG)."""
 import dataclasses
 
 import jax
 import numpy as np
 import pytest
 
-from flatmatch_tpu.config import PhotonConfig
-from flatmatch_tpu.engines import photon, photon_oracle_driver
-from flatmatch_tpu.engines.oracle import trace_batch_np
+from flatmatch.config import PhotonConfig
+from flatmatch.engines import photon, photon_oracle_driver, schedule
+from flatmatch.engines.oracle import trace_batch_np
 
 pytestmark = pytest.mark.fast
-from flatmatch_tpu.ops.device_scene import (
+from flatmatch.ops.device_scene import (
     exposure_scale,
     pack_emitters,
     pack_rects,
 )
-from flatmatch_tpu.scene import geometry, image as im, layout
+from flatmatch.scene import geometry, image as im, layout
 from tests.conftest import FIXTURES
 
 f32 = np.float32
@@ -100,7 +100,7 @@ def test_full_render_parity(mini_scene):
         scene, CFG.samples_per_area, CFG.window_color, CFG.light_color
     )
     lm_xla = np.asarray(
-        photon.render_photons(rects, emitters, scene.num_texels, CFG)
+        schedule.render_photons(rects, emitters, scene.num_texels, CFG)
     )
     lm_np = photon_oracle_driver.render_photons_np(scene, CFG)
     assert lm_xla.sum() > 0
@@ -117,7 +117,7 @@ def test_mipmap_region_untouched(tiny_scene):
     emitters = pack_emitters(
         scene, CFG.samples_per_area, CFG.window_color, CFG.light_color
     )
-    lm = np.asarray(photon.render_photons(rects, emitters, scene.num_texels, CFG))
+    lm = np.asarray(schedule.render_photons(rects, emitters, scene.num_texels, CFG))
     scale = exposure_scale(scene, CFG.samples_per_area, CFG.exposure)
     level0 = scene.level0_mask()
     assert (scale[~level0] == 0).all()
@@ -133,9 +133,9 @@ def test_seed_determinism(tiny_scene):
     emitters = pack_emitters(
         scene, CFG.samples_per_area, CFG.window_color, CFG.light_color
     )
-    a = np.asarray(photon.render_photons(rects, emitters, scene.num_texels, CFG))
-    b = np.asarray(photon.render_photons(rects, emitters, scene.num_texels, CFG))
+    a = np.asarray(schedule.render_photons(rects, emitters, scene.num_texels, CFG))
+    b = np.asarray(schedule.render_photons(rects, emitters, scene.num_texels, CFG))
     np.testing.assert_array_equal(a, b)
     cfg2 = dataclasses.replace(CFG, seed=CFG.seed + 1)
-    c = np.asarray(photon.render_photons(rects, emitters, scene.num_texels, cfg2))
+    c = np.asarray(schedule.render_photons(rects, emitters, scene.num_texels, cfg2))
     assert not np.array_equal(a, c)

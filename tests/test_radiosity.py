@@ -5,12 +5,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from flatmatch_tpu.config import RadiosityConfig
-from flatmatch_tpu.engines import radiosity
-from flatmatch_tpu.ops.device_scene import pack_rects
-from flatmatch_tpu.ops.mipmap import apply_plan_np, build_plan
-from flatmatch_tpu.scene import geometry, image as im, layout
-from flatmatch_tpu.scene.rectangle import num_mipmap_texels, num_tiles
+from flatmatch.config import RadiosityConfig
+from flatmatch.engines import radiosity
+from flatmatch.ops.device_scene import pack_rects
+from flatmatch.ops.mipmap import apply_plan_np, build_plan
+from flatmatch.scene import geometry, image as im, layout
+from flatmatch.scene.rectangle import num_mipmap_texels, num_tiles
 from tests.conftest import FIXTURES
 
 f32 = np.float32
@@ -101,75 +101,20 @@ def test_iterations_propagate_light(mini):
     assert seven.sum() > one.sum()
 
 
-def test_form_factors_aa_matches_xla(mini):
-    """Pallas AA form-factor pass vs the XLA pass at the same sampling keys
-    (interpret mode): identical rays, so ids match except float-tie flips."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    from flatmatch_tpu.ops.aa_scene import pack_aa
-
-    small = dataclasses.replace(CFG, rays_per_texel=32)
-    rects, total, _, _ = radiosity.extended_rects(mini)
-    ids_xla = radiosity.form_factors(mini, pack_rects(rects), small)
-    aa = pack_aa(rects)
-    assert aa is not None
-    with pltpu.force_tpu_interpret_mode():
-        ids_aa = radiosity.form_factors_aa(mini, aa, small)
-    assert ids_aa.shape == ids_xla.shape
-    match = (ids_aa == ids_xla).mean()
-    assert match > 0.995, f"only {match:.4%} ids agree"
-
-
 def test_form_factors_device_batch_matches_np(mini):
-    """Single-program AA form-factor pass vs the per-chunk NumPy-table
-    version (interpret mode, identical keys)."""
-    import jax.numpy as jnp
-    from jax.experimental.pallas import tpu as pltpu
-
-    from flatmatch_tpu.ops.aa_scene import pack_aa
-
+    """The device-resident form-factor table (the one the engine gathers
+    from) vs the per-chunk host table at identical keys."""
     small = dataclasses.replace(
         CFG, rays_per_texel=32, texels_per_chunk=128
     )
     rects, total, _, _ = radiosity.extended_rects(mini)
-    aa = pack_aa(rects)
-    with pltpu.force_tpu_interpret_mode():
-        ids_np = radiosity.form_factors_aa(mini, aa, small)
-        rows_pad = mini.num_texels + small.texels_per_chunk
-        ids_dev = np.asarray(
-            radiosity._form_factors_device(
-                mini, aa, small, rows_pad, use_aa=True
-            )
-        )
+    rects_dev = pack_rects(rects)
+    ids_np = radiosity.form_factors(mini, rects_dev, small)
+    rows_pad = mini.num_texels + small.texels_per_chunk
+    ids_dev = np.asarray(
+        radiosity._form_factors_device(mini, rects_dev, small, rows_pad)
+    )
     level0 = mini.level0_mask()
     np.testing.assert_array_equal(
         ids_dev[: mini.num_texels][level0], ids_np[level0]
     )
-
-
-def test_aa_query_unroll_invariant(mini):
-    """aa_nearest's unrolled rect loop (round 4) is BIT-identical across
-    unroll factors including a static-tail remainder — the first-min tie
-    break is order-dependent, so this checks the unroll preserves rect
-    order exactly."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    from flatmatch_tpu.ops.aa_query import aa_nearest
-    from flatmatch_tpu.ops.aa_scene import pack_aa
-
-    rects, _, _, _ = radiosity.extended_rects(mini)
-    aa = pack_aa(rects)
-    assert aa is not None
-    rng = np.random.default_rng(7)
-    n = 8 * 128
-    origins = rng.uniform(0.2, 5.0, (n, 3)).astype(f32)
-    dirs = rng.normal(size=(n, 3)).astype(f32)
-    dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
-    with pltpu.force_tpu_interpret_mode():
-        d1, t1 = aa_nearest(aa.fields, origins, dirs, aa.group_counts,
-                            unroll=1)
-        for u in (3, 4):
-            du, tu = aa_nearest(aa.fields, origins, dirs, aa.group_counts,
-                                unroll=u)
-            assert (np.asarray(du) == np.asarray(d1)).all()
-            assert (np.asarray(tu) == np.asarray(t1)).all()

@@ -11,10 +11,10 @@ radiance, per-texel correlation."""
 import numpy as np
 import pytest
 
-from flatmatch_tpu.config import RadiosityConfig
-from flatmatch_tpu.engines import radiosity
-from flatmatch_tpu.scene import geometry, image as im, layout
-from flatmatch_tpu.scene.rectangle import num_tiles
+from flatmatch.config import RadiosityConfig
+from flatmatch.engines import radiosity
+from flatmatch.scene import geometry, image as im, layout
+from flatmatch.scene.rectangle import num_tiles
 
 f32 = np.float32
 
@@ -34,13 +34,9 @@ CASES = [
 def test_radiosity_matches_reference_engine(name, fixture):
     from tests.conftest import FIXTURES
 
-    png = (
-        "/root/reference/example.png" if name == "example"
-        else str(FIXTURES / f"{name}.png")
-    )
-    img = im.load_layout(png)
-    lay = layout.parse_layout(img, f32(1.0) / f32(30.0), 200.0)
-    scene = geometry.Scene(lay)
+    from flatmatch.scene.rect_dump import load_rect_dump
+
+    scene = load_rect_dump(FIXTURES / f"{name}_rects.txt")
     gold = np.fromfile(FIXTURES / fixture, dtype="<f4").reshape(
         scene.num_texels, 4
     )[:, :3]

@@ -6,10 +6,10 @@ import numpy as np
 import pytest
 from PIL import Image as PILImage
 
-from flatmatch_tpu.config import DEFAULT_CONFIG, Engine
-from flatmatch_tpu.io import tiles as tiles_io
-from flatmatch_tpu.render import render
-from flatmatch_tpu.scene.rectangle import num_tiles
+from flatmatch.config import DEFAULT_CONFIG, Engine
+from flatmatch.io import tiles as tiles_io
+from flatmatch.render import render
+from flatmatch.scene.rectangle import num_tiles
 from tests.conftest import FIXTURES
 
 
@@ -73,9 +73,9 @@ def test_preview_progressive_tiles(tmp_path, monkeypatch):
     to a plain run (segmentation never changes a photon)."""
     import sys
 
-    import flatmatch_tpu.render  # noqa: F401  (package attr shadows module)
+    import flatmatch.render  # noqa: F401  (package attr shadows module)
 
-    render_mod = sys.modules["flatmatch_tpu.render"]
+    render_mod = sys.modules["flatmatch.render"]
 
     cfg = _cfg(Engine.PHOTON_XLA)
     # several segments: 1024-photon batches, 1 batch per segment
@@ -107,47 +107,38 @@ def test_preview_progressive_tiles(tmp_path, monkeypatch):
 
 
 def test_preview_wide_engine_interpret(tmp_path):
-    """preview=True forces the wide engine onto the segmented schedule
-    path (engines/photon_pallas_wide.render_photons on_segment); result is
-    bit-identical to the single-dispatch fast path."""
-    import jax
-    from jax.experimental.pallas import tpu as pltpu
+    """The preview hook on the trace-kernel engine fires after every
+    segment, the last call covers the whole budget, and watching a render
+    does not change it (interpret mode)."""
+    from flatmatch.engines import schedule
+    from flatmatch.engines.photon_triton import KernelSpec
+    from flatmatch.ops.aa_scene import pack_aa
+    from flatmatch.ops.device_scene import pack_emitters, pack_rects
+    from flatmatch.scene.rect_dump import load_rect_dump
 
-    from flatmatch_tpu.engines import photon_pallas_wide
-    from flatmatch_tpu.ops.aa_scene import pack_aa
-    from flatmatch_tpu.ops.device_scene import pack_emitters, pack_rects
-    from flatmatch_tpu.scene import geometry, image as im, layout
-
-    img = im.load_layout(str(FIXTURES / "tiny.png"))
-    lay = layout.parse_layout(
-        img, np.float32(1.0) / np.float32(30.0), 200.0
-    )
-    scene = geometry.Scene(lay)
+    scene = load_rect_dump(FIXTURES / "tiny_rects.txt")
     rects = pack_rects(scene.walls)
     cfg = dataclasses.replace(
         _cfg(Engine.PHOTON_PALLAS).photon,
-        samples_per_area=20000.0, photons_per_batch=1024, splat="scatter",
+        samples_per_area=20000.0, photons_per_batch=1024, device_rng=True,
+        checkpoint_every=2,
     )
     emitters = pack_emitters(
         scene, cfg.samples_per_area, cfg.window_color, cfg.light_color
     )
     aa = pack_aa(scene.walls)
+    kernel = KernelSpec(aa.group_counts, interpret=True)
     seen = []
-    with pltpu.force_tpu_interpret_mode():
-        fast = np.asarray(
-            photon_pallas_wide.render_photons(
-                rects, emitters, scene.num_texels, cfg, aa, sublanes=1
-            )
-        )
-        seg = np.asarray(
-            photon_pallas_wide.render_photons(
-                rects, emitters, scene.num_texels, cfg, aa, sublanes=1,
-                on_segment=lambda lm, d, t: seen.append((d, t)),
-            )
-        )
+    fast = np.asarray(schedule.render_photons(
+        rects, emitters, scene.num_texels, cfg, kernel=kernel, aa=aa))
+    seg = np.asarray(schedule.render_photons(
+        rects, emitters, scene.num_texels, cfg, kernel=kernel, aa=aa,
+        on_segment=lambda lm, d, t: seen.append((d, t)),
+    ))
     np.testing.assert_array_equal(fast, seg)
-    assert len(seen) >= 1
+    assert len(seen) >= 2
     assert seen[-1][0] == seen[-1][1]  # last segment completes the budget
+    assert [d for d, _ in seen] == sorted(d for d, _ in seen)
 
 
 def test_seam_dilate_semantics():
@@ -155,7 +146,7 @@ def test_seam_dilate_semantics():
     neighbor; interior lit and interior black regions are untouched."""
     import numpy as np
 
-    from flatmatch_tpu.io.tiles import seam_dilate
+    from flatmatch.io.tiles import seam_dilate
 
     img = np.zeros((5, 8, 3), np.uint8)
     img[:, 4:] = (10, 20, 30)     # lit half
@@ -175,7 +166,7 @@ def test_seam_dilate_semantics():
 
 
 def test_cli_dilate_seams_smoke(tmp_path):
-    from flatmatch_tpu import cli
+    from flatmatch import cli
     from tests.conftest import FIXTURES
 
     rc = cli.main([
@@ -192,8 +183,8 @@ def test_downsample_supersampled_semantics():
     """The supersampled downsample (imageProcessing.c:145-184 hint):
     each output texel averages its ss*ss sub-texel block EXCLUDING
     sub-texels with any zero channel; an all-zero block stays zero."""
-    from flatmatch_tpu.render import downsample_supersampled
-    from flatmatch_tpu.scene.rectangle import Rect
+    from flatmatch.render import downsample_supersampled
+    from flatmatch.scene.rectangle import Rect
 
     class _S:  # minimal scene stand-ins
         def __init__(self, walls, num_texels):
@@ -251,10 +242,10 @@ def test_supersampled_scene_flagship_grids():
     the density-loop approach demonstrably fails for several walls."""
     import pathlib
 
-    from flatmatch_tpu.config import DEFAULT_CONFIG
-    from flatmatch_tpu.render import supersampled_scene
-    from flatmatch_tpu.scene import geometry, image as im, layout
-    from flatmatch_tpu.scene.rectangle import create_rect, num_mipmap_texels
+    from flatmatch.config import DEFAULT_CONFIG
+    from flatmatch.render import supersampled_scene
+    from flatmatch.scene import geometry, image as im, layout
+    from flatmatch.scene.rectangle import create_rect, num_mipmap_texels
 
     png = pathlib.Path("/root/reference/example.png")
     if not png.exists():
@@ -308,65 +299,93 @@ def test_render_supersample_end_to_end(tmp_path):
 
 def test_texel_cap_refusal_flagship_density():
     """The 1 GB texel-arena cap (parseLayout.c:520-524, ported at
-    layout.py) actually fires at flagship density (round-4 VERDICT #2):
-    both user paths that can blow the arena — a high --supersample factor
-    and a raised texel density — refuse BEFORE any allocation or render,
-    with the projected size in the message."""
-    import pathlib
+    layout.py) actually fires: both user paths that can blow the arena —
+    a high --supersample factor on the flagship scene and a raised texel
+    density — refuse BEFORE any allocation or render, with the projected
+    size in the message."""
+    from flatmatch.render import supersampled_scene
+    from flatmatch.scene import image as im, layout
+    from flatmatch.scene.rect_dump import load_rect_dump
 
-    from flatmatch_tpu.render import supersampled_scene
-    from flatmatch_tpu.scene import geometry, image as im, layout
-
-    png = pathlib.Path("/root/reference/example.png")
-    if not png.exists():
-        pytest.skip("reference fixture unavailable")
-    img = im.load_layout(str(png))
-    lay = layout.parse_layout(img, np.float32(1.0) / np.float32(30.0), 200.0)
-    scene = geometry.Scene(lay)
-
+    scene = load_rect_dump(FIXTURES / "example_rects.txt")
     # flagship at ss=32: 1024 x 114k texels x 16 B = 1.86 GB > 1 GB
     with pytest.raises(MemoryError, match="1.86 GB"):
         supersampled_scene(scene, 32, DEFAULT_CONFIG)
 
     # raised density through the scene compiler itself
+    img = im.load_layout(str(FIXTURES / "mini.png"))
     with pytest.raises(MemoryError, match="cap 1.00 GB"):
         layout.parse_layout(
-            img, np.float32(1.0) / np.float32(30.0), 200.0 * 1024
+            img, np.float32(1.0) / np.float32(30.0), 200.0 * 16384
         )
 
 
-def test_wide_engine_texel_id_guard(monkeypatch):
-    """scene.num_texels >= 2^24 must force the photon_pallas dispatch onto
-    the XLA engine with a warning (render.py: Pallas texel ids are
-    f32-exact only below 2^24) instead of producing corrupted splats. The
-    backend is faked to 'tpu' so the guard (which sits behind the
-    off-TPU fallback) is actually reached; the XLA engine then runs on
-    the CPU."""
-    import dataclasses as dc
-    import io
-    import sys
-    from contextlib import redirect_stderr
-
+def test_wide_engine_texel_id_guard():
+    """Texel ids are int32 end to end: past 2^24, where an f32 id would
+    round, the trace kernel's deposit ids still equal the XLA engine's
+    exactly (interpret mode)."""
     import jax
+    import jax.numpy as jnp
 
-    from flatmatch_tpu.render import run_engine
-    from flatmatch_tpu.scene import geometry, image as im, layout
+    from flatmatch.config import PhotonConfig
+    from flatmatch.engines import photon, photon_triton as pt
+    from flatmatch.engines.schedule import emitter_slice
+    from flatmatch.ops.aa_scene import pack_aa
+    from flatmatch.ops.device_scene import pack_emitters, pack_rects
+    from flatmatch.scene.rect_dump import load_rect_dump
 
-    img = im.load_layout(str(FIXTURES / "tiny.png"))
-    lay = layout.parse_layout(img, np.float32(1.0) / np.float32(30.0), 200.0)
-    big = dc.replace(lay, num_texels=1 << 24)
-    scene = geometry.Scene(big)
+    scene = load_rect_dump(FIXTURES / "tiny_rects.txt")
+    shift = (1 << 24) + 1
+    walls = [dataclasses.replace(r, base=r.base + shift) for r in scene.walls]
+    cfg = PhotonConfig(photons_per_batch=512)
+    em = emitter_slice(
+        pack_emitters(scene, 1.0, cfg.window_color, cfg.light_color), 0
+    )
+    u = jax.random.uniform(jax.random.PRNGKey(3), (512, 28), jnp.float32)
+    xi, _ = jax.jit(photon.trace_deposits, static_argnames=("cfg",))(
+        pack_rects(walls), em, u, 512, cfg
+    )
+    aa = pack_aa(walls)
+    ki, _ = pt.trace_deposits(
+        aa.fields, aa.base, pt.emitter_vector(em), u, 512, cfg,
+        pt.KernelSpec(aa.group_counts, interpret=True),
+    )
+    xi, ki = np.asarray(xi), np.asarray(ki)
+    live = xi != photon.DEAD
+    assert live.any() and (xi[live] > (1 << 24)).all()
+    np.testing.assert_array_equal(ki, xi)
 
-    cfg = _cfg(Engine.PHOTON_PALLAS)
-    cfg = cfg.replace(photon=dataclasses.replace(
-        cfg.photon, samples_per_area=500.0, photons_per_batch=256
-    ))
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-    err = io.StringIO()
-    with redirect_stderr(err):
-        texels = run_engine(scene, cfg, mesh=None)
-    assert "2^24" in err.getvalue()
-    assert texels.shape == (1 << 24, 3)
-    # the real walls' span still received light
-    assert np.isfinite(texels).all()
-    assert texels[: lay.num_texels].sum() > 0
+
+def test_cli_render_without_pillow(tmp_path):
+    """The main path needs no imaging package: `cli render` with every
+    import of PIL refused still writes the JSONs and the tiles."""
+    import os
+    import subprocess
+    import sys
+
+    repo = str(FIXTURES.parents[1])
+    code = (
+        "import sys\n"
+        "class NoPIL:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name == 'PIL' or name.startswith('PIL.'):\n"
+        "            raise ImportError('PIL is blocked')\n"
+        "sys.meta_path.insert(0, NoPIL())\n"
+        "from flatmatch import cli\n"
+        "rc = cli.main(sys.argv[1:])\n"
+        "assert 'PIL' not in sys.modules\n"
+        "sys.exit(rc)\n"
+    )
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               PYTHONPATH=repo + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    out = subprocess.run(
+        [sys.executable, "-c", code, "render", str(FIXTURES / "tiny.png"),
+         "30", "--samples-per-area", "2000", "--photons-per-batch", "512",
+         "--out", str(tmp_path)],
+        env=env, capture_output=True, text=True, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert (tmp_path / "geometry.json").read_text() == (
+        FIXTURES / "tiny_geometry.json"
+    ).read_text()
+    assert len(list((tmp_path / "tiles").glob("tile_*.png"))) == 13

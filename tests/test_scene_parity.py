@@ -6,8 +6,9 @@ import pathlib
 import numpy as np
 import pytest
 
-from flatmatch_tpu.scene import collision, geometry, image as im, layout
-from tests.conftest import FIXTURES, REFERENCE, parse_rects_fixture
+from flatmatch.scene import collision, geometry, image as im, layout
+from flatmatch.scene.rect_dump import parse_rect_dump as parse_rects_fixture
+from tests.conftest import FIXTURES, REFERENCE
 
 pytestmark = pytest.mark.fast
 
@@ -77,3 +78,16 @@ def test_collision_map(name, png):
     ours = collision.build_collision_map(img)
     gold = (FIXTURES / f"{name}_collisionMap.json").read_text()
     assert ours == gold
+
+
+@pytest.mark.parametrize("name", ["tiny", "mini", "example"])
+def test_rect_dump_scene_writes_reference_geometry_json(name):
+    """A scene loaded from its rect dump (scene/rect_dump.py) is the scene
+    the layout compiles to: geometry.json byte-equal to the reference's."""
+    from flatmatch.scene.geometry import geometry_json
+    from flatmatch.scene.rect_dump import load_rect_dump
+
+    scene = load_rect_dump(FIXTURES / f"{name}_rects.txt")
+    assert geometry_json(scene) == (
+        FIXTURES / f"{name}_geometry.json"
+    ).read_text()
